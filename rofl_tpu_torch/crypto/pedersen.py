@@ -26,7 +26,6 @@ import torch
 from ..ops import curve, fe, fixed_base, keccak_batch, sc
 from ..ops.curve import PointArray
 from ..spec import generators as G
-from ..spec import scalar as SS
 
 
 class ElGamalPairArray(NamedTuple):
@@ -98,24 +97,29 @@ def right_elem_is_identity(pairs: ElGamalPairArray) -> torch.Tensor:
     return curve.eq(pairs.R, ident)
 
 
-# -- blinding generation (secrets; returned to the host) --------------------------------
+# -- blinding generation (secrets) ---------------------------------------------
 
 
-def rnd_scalar_limbs(n: int, rng: np.random.Generator, device="cuda") -> np.ndarray:
-    """Uniform scalars mod l: 64 uniform bytes reduced wide, like
-    Scalar::random (pedersen_ops.rs rnd_scalar_vec). Returns (16, n) uint32
-    limbs on the host, ready for the wire.
+def rnd_scalar_tensor(n: int, rng: np.random.Generator, device="cuda") -> torch.Tensor:
+    """Uniform scalars mod l as (16, n) int32 limbs on `device`: 64 uniform
+    bytes reduced wide, like Scalar::random (pedersen_ops.rs rnd_scalar_vec).
 
     On the card the 64 bytes per lane come from a keyed Keccak-f[1600] XOF in
     counter mode (one batched permutation for all lanes; key = 32 bytes drawn
     from the caller's rng) and are reduced by the ``sc_reduce_wide`` kernel,
-    so only the key goes up and only the scalars come back. Deterministic per
-    rng seed. For ``device="cpu"`` the host sampler draws the bytes from the
-    rng directly, as the JAX package does off the TPU."""
+    so only the key goes up. Deterministic per rng seed. For ``device="cpu"``
+    the host sampler draws the bytes from the rng directly, as the JAX
+    package does off the TPU."""
     if fe.canonical_device(device).type == "cuda":
-        return fe.to_numpy(sc.reduce_wide_bytes(xof_byte_cols(rng.bytes(32), n, device)))
+        return sc.reduce_wide_bytes(xof_byte_cols(rng.bytes(32), n, device))
     raw = rng.integers(0, 256, size=(n, 64), dtype=np.uint8)
-    return sc.from_bytes_wide_array(raw)
+    return fe.to_tensor(sc.from_bytes_wide_array(raw), device)
+
+
+def rnd_scalar_limbs(n: int, rng: np.random.Generator, device="cuda") -> np.ndarray:
+    """``rnd_scalar_tensor`` brought back to the host as (16, n) uint32
+    limbs, ready for the wire."""
+    return fe.to_numpy(rnd_scalar_tensor(n, rng, device))
 
 
 def xof_byte_cols(key: bytes, n: int, device="cuda") -> torch.Tensor:
@@ -136,10 +140,9 @@ def cancelling_scalar_limbs(
     n_vec: int, n_dim: int, rng: np.random.Generator, device="cuda"
 ) -> list[np.ndarray]:
     """n_vec scalar vectors with elementwise sum ≡ 0 (mod l)
-    (pedersen_ops.rs:110-122): first n-1 random, last = -(sum)."""
-    vecs = [rnd_scalar_limbs(n_dim, rng, device) for _ in range(n_vec - 1)]
-    total = [0] * n_dim
-    for v in vecs:
-        total = [(t + x) % SS.L for t, x in zip(total, sc.unpack_scalars(v))]
-    last = sc.pack_scalars([-t for t in total])
-    return vecs + [last]
+    (pedersen_ops.rs:110-122): first n-1 random, last = -(sum). The sum and
+    the negation run on `device` (``sc_add`` and ``sc_sub`` launches on the
+    card); the vectors come back to the host for the wire."""
+    vecs = [rnd_scalar_tensor(n_dim, rng, device) for _ in range(n_vec - 1)]
+    last = sc.neg(sc.sum_reduce(torch.stack(vecs, dim=1), axis=0)).reshape(fe.NLIMB, n_dim)
+    return [fe.to_numpy(v) for v in vecs + [last]]

@@ -1,7 +1,8 @@
 """Bincode-compatible (de)serializers — wire parity with the reference.
 
-Counterpart of the scalar, point, compressed-point and ElGamal-pair codecs of
-``rofl_tpu.crypto.serde_vec``; the proof codecs follow with the proofs.
+Counterpart of the scalar, point, compressed-point, ElGamal-pair and
+Σ-proof codecs of ``rofl_tpu.crypto.serde_vec``; the range-proof codecs
+follow with the range proofs.
 
 The reference serializes every crypto object through serde's
 `serialize_bytes`, which bincode encodes as a u64 little-endian length
@@ -11,6 +12,10 @@ Element sizes on the wire:
 
   Scalar / RistrettoPoint / CompressedRistretto   8 + 32  = 40
   ElGamalPair (L||R compressed)                   8 + 64  = 72
+  SquareRandProofCommitments (L||R||c_sq)         8 + 96  = 104
+  RandProof (C'_L||C'_R||z_m||z_r)                8 + 128 = 136
+  SquareProof (C'_l||C'_sq||z_m||z_r1||z_r2)      8 + 160 = 168
+  SquareRandProof (C'_L||C'_R||C'_sq||z_m||z_r1||z_r2)  8 + 192 = 200
 
 Bytes are handled on the host with numpy, whole vectors at a time; the
 arrays feed the device kernels directly. Functions that create tensors take
@@ -27,6 +32,7 @@ from ..ops import curve, fe, sc
 from ..ops.curve import PointArray
 from ..spec import field as SF
 from ..spec import scalar as SS
+from . import sigma
 from .pedersen import ElGamalPairArray
 
 
@@ -212,3 +218,77 @@ def deserialize_eg_pair_vec(data: bytes, device="cuda") -> ElGamalPairArray:
         L=decompress_rows(rows[:, :32], device),
         R=decompress_rows(rows[:, 32:], device),
     )
+
+
+# -- Σ-proofs: rows of 32-byte point encodings followed by 32-byte scalars ----
+
+
+def _proof_rows(points: list, scalars: list) -> np.ndarray:
+    """Point batches and (16, N) scalar limbs → (N, 32·k) uint8 rows."""
+    return np.concatenate(
+        [curve.compress_to_bytes(p) for p in points]
+        + [sc.to_bytes_array(z) for z in scalars], axis=1)
+
+
+def _parse_proof_rows(data: bytes, n_points: int, n_scalars: int, what: str,
+                      scalar_fault: str, device) -> tuple[list, list]:
+    """Inverse of ``_proof_rows``: raises on a bad item length, then on a
+    non-canonical scalar, then on an invalid point encoding. Scalars come
+    back as int32 limb tensors on `device`."""
+    rows = _parse_rows_vec(data, 32 * (n_points + n_scalars), what)
+    cols = [rows[:, 32 * k:32 * (k + 1)] for k in range(n_points + n_scalars)]
+    limbs = [_bytes_to_limbs(c) for c in cols[n_points:]]
+    if not all(_limbs_below(z, SS.L).all() for z in limbs):
+        raise ValueError(scalar_fault)
+    return ([decompress_rows(c, device) for c in cols[:n_points]],
+            [fe.to_tensor(z, device) for z in limbs])
+
+
+def serialize_squaretriple_vec(c: sigma.SquareRandCommitVec) -> bytes:
+    """Vec<SquareRandProofCommitments>: each C_L||C_R||C_sq."""
+    return _rows_vec(_proof_rows([c.c.L, c.c.R, c.c_sq], []))
+
+
+def deserialize_squaretriple_vec(data: bytes, device="cuda") -> sigma.SquareRandCommitVec:
+    (left, right, c_sq), _ = _parse_proof_rows(
+        data, 3, 0, "SquareRandProofCommitments", "", device)
+    return sigma.SquareRandCommitVec(c=ElGamalPairArray(left, right), c_sq=c_sq)
+
+
+def serialize_rand_proof_vec(proofs: sigma.RandProofVec) -> bytes:
+    """Vec<RandProof>: each C'_L||C'_R||z_m||z_r (rand_proof/mod.rs:87-99)."""
+    return _rows_vec(_proof_rows([proofs.c_prime.L, proofs.c_prime.R],
+                                 [proofs.z_m, proofs.z_r]))
+
+
+def deserialize_rand_proof_vec(data: bytes, device="cuda") -> sigma.RandProofVec:
+    (left, right), (z_m, z_r) = _parse_proof_rows(
+        data, 2, 2, "RandProof", "non-canonical RandProof scalars", device)
+    return sigma.RandProofVec(c_prime=ElGamalPairArray(left, right), z_m=z_m, z_r=z_r)
+
+
+def serialize_square_rand_proof_vec(p: sigma.SquareRandProofVec) -> bytes:
+    """Vec<SquareRandProof>: C'eg(64)||C'ped(32)||z_m||z_r1||z_r2."""
+    return _rows_vec(_proof_rows([p.c_prime.L, p.c_prime.R, p.c_sq_prime],
+                                 [p.z_m, p.z_r1, p.z_r2]))
+
+
+def deserialize_square_rand_proof_vec(data: bytes,
+                                      device="cuda") -> sigma.SquareRandProofVec:
+    (left, right, c_sq_prime), (z_m, z_r1, z_r2) = _parse_proof_rows(
+        data, 3, 3, "SquareRandProof", "non-canonical scalars", device)
+    return sigma.SquareRandProofVec(
+        c_prime=ElGamalPairArray(left, right), c_sq_prime=c_sq_prime,
+        z_m=z_m, z_r1=z_r1, z_r2=z_r2)
+
+
+def serialize_square_proof_vec(p: sigma.SquareProofVec) -> bytes:
+    """Vec<SquareProof>: C'_l(32)||C'_sq(32)||z_m||z_r1||z_r2."""
+    return _rows_vec(_proof_rows([p.c_l_prime, p.c_sq_prime], [p.z_m, p.z_r1, p.z_r2]))
+
+
+def deserialize_square_proof_vec(data: bytes, device="cuda") -> sigma.SquareProofVec:
+    (c_l_prime, c_sq_prime), (z_m, z_r1, z_r2) = _parse_proof_rows(
+        data, 2, 3, "SquareProof", "non-canonical scalars", device)
+    return sigma.SquareProofVec(c_l_prime=c_l_prime, c_sq_prime=c_sq_prime,
+                                z_m=z_m, z_r1=z_r1, z_r2=z_r2)

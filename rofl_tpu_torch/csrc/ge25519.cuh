@@ -1,7 +1,7 @@
 // Ristretto255 point arithmetic for one lane per CUDA thread, on top of
 // fe25519.cuh: extended twisted-Edwards coordinates (X:Y:Z:T), a = -1.
 // Same formulas as the TPU package's p_add / p_double / _compress_kernel /
-// _decompress_kernel (rofl_tpu/ops/kernels.py) and the plain versions in
+// _decompress_kernel / _scalar_mul_kernel (rofl_tpu/ops/kernels.py) and the plain versions in
 // rofl_tpu_torch/ops/kernels.py.
 #pragma once
 
@@ -62,6 +62,33 @@ ROFL_HD ge ge_double(const ge &p) {
   r.z = fe_mul(f, g);
   r.t = fe_mul(e, h);
   return r;
+}
+
+ROFL_HD ge ge_identity() {
+  ge r;
+  r.x = fe_zero();
+  r.y = fe_one();
+  r.z = fe_one();
+  r.t = fe_zero();
+  return r;
+}
+
+ROFL_HD ge ge_select(bool cond, const ge &p_true, const ge &p_false) {
+  ge r;
+  r.x = fe_select(cond, p_true.x, p_false.x);
+  r.y = fe_select(cond, p_true.y, p_false.y);
+  r.z = fe_select(cond, p_true.z, p_false.z);
+  r.t = fe_select(cond, p_true.t, p_false.t);
+  return r;
+}
+
+// One step of the double-and-add ladder, most significant bit first:
+// acc = 2 acc, then acc + p where the bit is set. The add is always computed
+// and the result selected, so neither control flow nor the sequence of
+// operations depends on the (possibly secret) bit.
+ROFL_HD ge ge_ladder_step(const ge &acc, const ge &p, bool bit) {
+  ge doubled = ge_double(acc);
+  return ge_select(bit, ge_add(doubled, p), doubled);
 }
 
 // Ristretto encode (RFC 9496 4.3.2) -> canonical limbs.

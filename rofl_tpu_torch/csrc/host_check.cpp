@@ -104,4 +104,39 @@ void host_sc_reduce_wide(const int32_t *bytes, int32_t *out, int n) {
   }
 }
 
+// op: 0 a * b, 1 a + b, 2 a - b (mod l). a_lanes and b_lanes are each n or 1
+// (broadcast), as in the kernels.
+void host_sc_op(int op, const int32_t *a, int a_lanes, const int32_t *b, int b_lanes,
+                int32_t *out, int n) {
+  for (int lane = 0; lane < n; ++lane) {
+    uint32_t x[SC_WORDS], y[SC_WORDS], r[SC_WORDS];
+    sc_load(a, a_lanes, a_lanes == 1 ? 0 : lane, x);
+    sc_load(b, b_lanes, b_lanes == 1 ? 0 : lane, y);
+    switch (op) {
+      case 0: sc_mul(x, y, r); break;
+      case 1: sc_add(x, y, r); break;
+      default: sc_sub(x, y, r); break;
+    }
+    sc_store(out, n, lane, r);
+  }
+}
+
+// The ladder of csrc/scalar_mul.cu: 256 steps from bit 255 down to bit 0 of
+// the scalar's 16 limbs. k_lanes is n or 1.
+void host_scalar_mul(const int32_t *k, int k_lanes, const int32_t *px, const int32_t *py,
+                     const int32_t *pz, const int32_t *pt, int32_t *ox, int32_t *oy,
+                     int32_t *oz, int32_t *ot, int n) {
+  for (int lane = 0; lane < n; ++lane) {
+    ge p = load_point(px, py, pz, pt, n, lane);
+    ge acc = ge_identity();
+    for (int limb = NLIMB - 1; limb >= 0; --limb) {
+      uint32_t word = (uint32_t)k[(int64_t)limb * k_lanes + (k_lanes == 1 ? 0 : lane)];
+      for (int bit = 15; bit >= 0; --bit) {
+        acc = ge_ladder_step(acc, p, ((word >> bit) & 1u) != 0);
+      }
+    }
+    store_point(ox, oy, oz, ot, n, lane, acc);
+  }
+}
+
 }  // extern "C"

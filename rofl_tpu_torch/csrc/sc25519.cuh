@@ -104,6 +104,78 @@ ROFL_HD void sc_reduce_512(const uint32_t (&v)[16], uint32_t (&out)[SC_WORDS]) {
   sc_cond_sub_l(out);
 }
 
+// a * b mod l for any two 256-bit values: schoolbook product of 8 x 8 words
+// (64 wide multiplies, each added into the running 16-word product with a
+// 64-bit carry; (2^32-1)^2 + 2(2^32-1) = 2^64-1, so no step overflows), then
+// the wide reduction. Replaces the TPU package's s_mul.
+ROFL_HD void sc_mul(const uint32_t (&a)[SC_WORDS], const uint32_t (&b)[SC_WORDS],
+                    uint32_t (&out)[SC_WORDS]) {
+  uint32_t prod[2 * SC_WORDS];
+  ROFL_UNROLL
+  for (int k = 0; k < 2 * SC_WORDS; ++k) prod[k] = 0;
+  ROFL_UNROLL
+  for (int i = 0; i < SC_WORDS; ++i) {
+    uint64_t carry = 0;
+    ROFL_UNROLL
+    for (int j = 0; j < SC_WORDS; ++j) {
+      uint64_t t = (uint64_t)a[i] * (uint64_t)b[j] + prod[i + j] + carry;
+      prod[i + j] = (uint32_t)t;
+      carry = t >> 32;
+    }
+    prod[i + SC_WORDS] = (uint32_t)carry;
+  }
+  sc_reduce_512(prod, out);
+}
+
+// a + b mod l for canonical a, b: the sum is below 2l < 2^254, so one
+// conditional subtract finishes it. Replaces the TPU package's s_add.
+ROFL_HD void sc_add(const uint32_t (&a)[SC_WORDS], const uint32_t (&b)[SC_WORDS],
+                    uint32_t (&out)[SC_WORDS]) {
+  uint64_t carry = 0;
+  ROFL_UNROLL
+  for (int k = 0; k < SC_WORDS; ++k) {
+    uint64_t s = (uint64_t)a[k] + b[k] + carry;
+    out[k] = (uint32_t)s;
+    carry = s >> 32;
+  }
+  sc_cond_sub_l(out);
+}
+
+// a - b mod l for canonical a, b: subtract with borrow, then add l back where
+// it borrowed (the wrap modulo 2^256 cancels). The TPU package's s_sub adds
+// l - b and subtracts l twice; the canonical result is the same.
+ROFL_HD void sc_sub(const uint32_t (&a)[SC_WORDS], const uint32_t (&b)[SC_WORDS],
+                    uint32_t (&out)[SC_WORDS]) {
+  const uint32_t l[SC_WORDS] = {0x5cf5d3edu, 0x5812631au, 0xa2f79cd6u, 0x14def9deu,
+                                0u, 0u, 0u, 0x10000000u};
+  uint64_t borrow = 0;
+  ROFL_UNROLL
+  for (int k = 0; k < SC_WORDS; ++k) {
+    uint64_t d = (uint64_t)a[k] - b[k] - borrow;
+    out[k] = (uint32_t)d;
+    borrow = (d >> 32) & 1u;
+  }
+  uint32_t mask = borrow ? 0xFFFFFFFFu : 0u;
+  uint64_t carry = 0;
+  ROFL_UNROLL
+  for (int k = 0; k < SC_WORDS; ++k) {
+    uint64_t s = (uint64_t)out[k] + (l[k] & mask) + carry;
+    out[k] = (uint32_t)s;
+    carry = s >> 32;
+  }
+}
+
+// The 16 limbs of 16 bits of one lane of a (16, n) array -> 8 words. A
+// broadcast operand is (16, 1): pass n_lanes = 1 and lane = 0.
+ROFL_HD void sc_load(const int32_t *base, int64_t n_lanes, int64_t lane,
+                     uint32_t (&a)[SC_WORDS]) {
+  ROFL_UNROLL
+  for (int k = 0; k < SC_WORDS; ++k) {
+    a[k] = (uint32_t)base[(int64_t)(2 * k) * n_lanes + lane] |
+           ((uint32_t)base[(int64_t)(2 * k + 1) * n_lanes + lane] << 16);
+  }
+}
+
 // 64 little-endian byte columns of one lane -> 16 words.
 ROFL_HD void sc_load_wide_bytes(const int32_t *bytes, int64_t n_lanes, int64_t lane,
                                 uint32_t (&v)[16]) {

@@ -1,0 +1,41 @@
+// sc_mul: a * b mod l per lane, one lane per thread.
+//
+// Replaces the TPU kernel rofl_tpu/ops/kernels.py _sc_mul_kernel / sc_mul.
+// Work per lane: 64 wide multiplies for the 512-bit product and 64 for the
+// three folds (256 32-bit multiply-adds in all) against 192 bytes moved (two
+// scalars read, one written): bound by memory on an H100. Design: each limb
+// row is read and written coalesced across the warp, the product and the
+// folds stay in registers as 32-bit words with 64-bit carries. Either operand
+// may be a single broadcast lane ((16, 1)), read with stride 0: a proof that
+// multiplies every lane by one shared challenge does not materialise it.
+#include <cuda_runtime.h>
+
+#include "sc25519.cuh"
+
+using namespace rofl;
+
+namespace {
+
+constexpr int THREADS = 128;
+
+__global__ void __launch_bounds__(THREADS)
+sc_mul_kernel(const int32_t *a, int a_lanes, const int32_t *b, int b_lanes,
+              int32_t *out, int n) {
+  int64_t lane = (int64_t)blockIdx.x * THREADS + threadIdx.x;
+  if (lane >= n) return;
+  uint32_t x[SC_WORDS], y[SC_WORDS], r[SC_WORDS];
+  sc_load(a, a_lanes, a_lanes == 1 ? 0 : lane, x);
+  sc_load(b, b_lanes, b_lanes == 1 ? 0 : lane, y);
+  sc_mul(x, y, r);
+  sc_store(out, n, lane, r);
+}
+
+}  // namespace
+
+// a_lanes and b_lanes are each n or 1 (broadcast). Returns cudaGetLastError().
+extern "C" int rofl_sc_mul(const int32_t *a, int a_lanes, const int32_t *b, int b_lanes,
+                           int32_t *out, int n, void *stream) {
+  int blocks = (n + THREADS - 1) / THREADS;
+  sc_mul_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(a, a_lanes, b, b_lanes, out, n);
+  return (int)cudaGetLastError();
+}

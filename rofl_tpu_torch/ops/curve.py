@@ -5,7 +5,7 @@ A point batch is a NamedTuple of four limb tensors (``ops/fe.py`` layout:
 (16, *batch) int32). The a=-1 unified addition law is complete (works for
 identity and doubling), so every op is branch-free and batchable.
 
-``add``, ``double``, ``compress`` and ``decompress`` go through the wrappers
+``add``, ``double``, ``scalar_mul``, ``compress`` and ``decompress`` go through the wrappers
 in ``ops/kernels.py``: the CUDA kernel for tensors on the card, the plain
 version for tensors on the CPU. ``neg``, ``select`` and ``eq`` are plain
 tensor code on both. The JAX package's lane bucketing (padding lane counts
@@ -71,7 +71,7 @@ def _lanes(p: PointArray, shape) -> tuple:
     """Coordinates as contiguous (16, N) for the kernel wrappers; a point
     with one lane stays (16, 1) and is broadcast by the kernel."""
     if p.x.numel() == fe.NLIMB:
-        return tuple(c.reshape(fe.NLIMB, 1) for c in p)
+        return tuple(c.reshape(fe.NLIMB, 1).contiguous() for c in p)
     return tuple(c.expand(shape).reshape(fe.NLIMB, -1).contiguous() for c in p)
 
 
@@ -102,6 +102,16 @@ def eq(p: PointArray, q: PointArray) -> torch.Tensor:
     return fe.eq(fe.mul(p.x, q.y), fe.mul(p.y, q.x)) | fe.eq(
         fe.mul(p.x, q.x), fe.mul(p.y, q.y)
     )
+
+
+def scalar_mul(p: PointArray, k: torch.Tensor) -> PointArray:
+    """Per-element variable-base scalar mul: k (16, *batch) limbs of canonical
+    scalars, or one scalar (16, 1, ...) for every point. One launch of the
+    ``scalar_mul`` kernel on the card (a 256-step ladder per lane)."""
+    k = k.reshape(fe.NLIMB, 1).contiguous() if k.numel() == fe.NLIMB else (
+        k.expand(p.x.shape).reshape(fe.NLIMB, -1).contiguous())
+    out = kernels.scalar_mul(k, tuple(c.reshape(fe.NLIMB, -1).contiguous() for c in p))
+    return PointArray(*[c.reshape(p.x.shape) for c in out])
 
 
 def compress(p: PointArray) -> torch.Tensor:

@@ -1,13 +1,17 @@
 """The hand-written Hopper kernels for the curve and scalar hot paths, their
 build, their wrappers, and the plain torch version of each.
 
-Counterpart of ``rofl_tpu/ops/kernels.py``. Five of its TPU kernels are here:
+Counterpart of ``rofl_tpu/ops/kernels.py``. Nine of its TPU kernels are here:
 
   point_add     csrc/point_add.cu     (TPU: _add_kernel / point_add)
   point_double  csrc/point_double.cu  (TPU: _double_kernel / point_double)
   compress      csrc/compress.cu      (TPU: _compress_kernel / compress)
   decompress    csrc/decompress.cu    (TPU: _decompress_kernel / decompress)
   sc_reduce_wide  csrc/sc_reduce_wide.cu  (TPU: _sc_reduce_wide_kernel / sc_reduce_wide)
+  sc_mul        csrc/sc_mul.cu        (TPU: _sc_mul_kernel / sc_mul)
+  sc_add        csrc/sc_add.cu        (TPU: _sc_add_kernel / sc_add)
+  sc_sub        csrc/sc_sub.cu        (TPU: _sc_sub_kernel / sc_sub)
+  scalar_mul    csrc/scalar_mul.cu    (TPU: _scalar_mul_kernel / scalar_mul, W=1)
 
 Each is CUDA C++ for sm_90a, one lane per thread, sharing the field, point and
 scalar device headers ``csrc/fe25519.cuh``, ``csrc/ge25519.cuh`` and
@@ -33,6 +37,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from ..spec import field as SF
@@ -51,6 +56,10 @@ KERNEL_SOURCES = {
     "compress": "compress.cu",
     "decompress": "decompress.cu",
     "sc_reduce_wide": "sc_reduce_wide.cu",
+    "sc_mul": "sc_mul.cu",
+    "sc_add": "sc_add.cu",
+    "sc_sub": "sc_sub.cu",
+    "scalar_mul": "scalar_mul.cu",
 }
 _HEADERS = ("fe25519.cuh", "ge25519.cuh", "sc25519.cuh")
 
@@ -65,8 +74,15 @@ _ARGTYPES = {
     "compress": [_P] * 5 + [_I, _P],
     "decompress": [_P] * 6 + [_I, _P],
     "sc_reduce_wide": [_P] * 2 + [_I, _P],
+    "sc_mul": [_P, _I, _P, _I, _P, _I, _P],
+    "sc_add": [_P, _I, _P, _I, _P, _I, _P],
+    "sc_sub": [_P, _I, _P, _I, _P, _I, _P],
+    "scalar_mul": [_P, _I] + [_P] * 8 + [_I, _P],
 }
 _functions: dict = {}
+# What nvcc printed for each kernel this process compiled (ptxas -v: registers,
+# shared memory, spills); empty for a library that was already built.
+BUILD_LOGS: dict = {}
 
 
 # =============================================================================
@@ -103,7 +119,7 @@ def build_kernels() -> dict:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [
             nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-            "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
+            "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
             str(CSRC_DIR / src),
         ]
         running[name] = (subprocess.Popen(
@@ -115,6 +131,7 @@ def build_kernels() -> dict:
             failed.append(f"{name}: nvcc exited with {proc.returncode}\n{log}")
         else:
             os.replace(tmp, out)
+            BUILD_LOGS[name] = log
     if failed:
         raise RuntimeError("kernel build failed\n" + "\n".join(failed))
     for name in KERNEL_SOURCES:
@@ -158,20 +175,30 @@ def _empty_coords(k: int, n: int, device: torch.device) -> list:
 # =============================================================================
 
 
+def _stack(*coords):
+    """Field elements side by side on a new axis after the limb axis, so that
+    one call of a plain field op serves several independent operands. A lane's
+    limbs come out exactly as from separate calls."""
+    return torch.stack(coords, dim=1)
+
+
 def point_add_ref(p, q):
     """Unified extended addition add-2008-hwcd-3, a=-1 (9 field muls) on
-    (x, y, z, t) tuples; operands broadcast over lanes."""
-    px, py, pz, pt = p
-    qx, qy, qz, qt = q
-    a = fe.mul(fe.sub(py, px), fe.sub(qy, qx))
-    b = fe.mul(fe.add(py, px), fe.add(qy, qx))
-    c = fe.mul(fe.mul(pt, fe.constant(SF.D2, pt.shape[1:], pt.device)), qt)
-    d = fe.mul_small(fe.mul(pz, qz), 2)
-    e = fe.sub(b, a)
-    f = fe.sub(d, c)
-    g = fe.add(d, c)
-    h = fe.add(b, a)
-    return (fe.mul(e, f), fe.mul(g, h), fe.mul(f, g), fe.mul(e, h))
+    (x, y, z, t) tuples; operands broadcast over lanes. Independent field
+    operations of the formula share one call."""
+    shape = np.broadcast_shapes(tuple(p[0].shape), tuple(q[0].shape))
+    px, py, pz, pt = (c.expand(shape) for c in p)
+    qx, qy, qz, qt = (c.expand(shape) for c in q)
+    ys, xs = _stack(py, qy), _stack(px, qx)
+    diff, total = fe.sub(ys, xs), fe.add(ys, xs)  # (py-px, qy-qx), (py+px, qy+qx)
+    d2 = fe.constant(SF.D2, shape[1:], pt.device).expand(shape)
+    a, b, pt_d2, pz_qz = fe.mul(_stack(diff[:, 0], total[:, 0], pt, pz),
+                                _stack(diff[:, 1], total[:, 1], d2, qz)).unbind(1)
+    c = fe.mul(pt_d2, qt)
+    d = fe.mul_small(pz_qz, 2)
+    e, f = fe.sub(_stack(b, d), _stack(a, c)).unbind(1)
+    g, h = fe.add(_stack(d, b), _stack(c, a)).unbind(1)
+    return tuple(fe.mul(_stack(e, g, f, e), _stack(f, h, g, h)).unbind(1))
 
 
 def point_add(p, q):
@@ -200,15 +227,13 @@ def point_add(p, q):
 
 def point_double_ref(p):
     px, py, pz, _ = p
-    a = fe.sqr(px)
-    b = fe.sqr(py)
-    c = fe.mul_small(fe.sqr(pz), 2)
+    a, b, zz, xy2 = fe.sqr(_stack(px, py, pz, fe.add(px, py))).unbind(1)
+    c = fe.mul_small(zz, 2)
     d = fe.neg(a)
-    e = fe.sub(fe.sub(fe.sqr(fe.add(px, py)), a), b)
+    e = fe.sub(fe.sub(xy2, a), b)
     g = fe.add(d, b)
-    f = fe.sub(g, c)
-    h = fe.sub(d, b)
-    return (fe.mul(e, f), fe.mul(g, h), fe.mul(f, g), fe.mul(e, h))
+    f, h = fe.sub(_stack(g, d), _stack(c, b)).unbind(1)
+    return tuple(fe.mul(_stack(e, g, f, e), _stack(f, h, g, h)).unbind(1))
 
 
 def point_double(p):
@@ -339,3 +364,112 @@ def sc_reduce_wide(byte_cols):
     (out,) = _empty_coords(1, n, device)
     _launch("sc_reduce_wide", device, byte_cols.data_ptr(), out.data_ptr(), n)
     return out
+
+
+# =============================================================================
+# sc_mul, sc_add, sc_sub
+# =============================================================================
+
+
+def sc_mul_ref(a, b):
+    """a * b mod l on (16, N) limbs: the 512-bit schoolbook product (int64:
+    a 16 x 16-bit partial product reaches 2^32), then the wide reduction.
+    Right for any 16-bit limbs."""
+    a, b = torch.broadcast_tensors(a.to(torch.int64), b.to(torch.int64))
+    lo = torch.zeros((2 * NLIMB,) + a.shape[1:], dtype=torch.int64, device=a.device)
+    hi = torch.zeros_like(lo)
+    for i in range(NLIMB):
+        p = a[i].unsqueeze(0) * b
+        lo[i:i + NLIMB] += p & sc.MASK16
+        hi[i + 1:i + 1 + NLIMB] += p >> 16
+    return sc.reduce_512(sc.carry(list((lo + hi).unbind(0)))[:2 * NLIMB])
+
+
+def sc_add_ref(a, b):
+    """a + b mod l for canonical a, b: the sum is below 2l, one conditional
+    subtract."""
+    a, b = torch.broadcast_tensors(a, b)
+    return torch.stack(sc.cond_sub_l(sc.carry([a[k] + b[k] for k in range(NLIMB)])[:NLIMB]))
+
+
+def sc_sub_ref(a, b):
+    """a - b mod l for canonical a, b, as a + (l - b): at most 2l - 1, one
+    conditional subtract."""
+    a, b = torch.broadcast_tensors(a, b)
+    l_minus_b = sc.l_minus(b)
+    return torch.stack(sc.cond_sub_l(
+        sc.carry([a[k] + l_minus_b[k] for k in range(NLIMB)])[:NLIMB]))
+
+
+def _sc_binary(name: str, plain, a, b):
+    if not use_kernels(a):
+        return plain(a, b)
+    device = a.device
+    n = max(a.shape[-1], b.shape[-1])
+    _check_coords(f"{name} a", (a,), device, (n, 1))
+    _check_coords(f"{name} b", (b,), device, (n, 1))
+    (out,) = _empty_coords(1, n, device)
+    _launch(name, device, a.data_ptr(), a.shape[1], b.data_ptr(), b.shape[1],
+            out.data_ptr(), n)
+    return out
+
+
+def sc_mul(a, b):
+    """Batched a * b mod l on (16, N) int32 scalar limbs → canonical (16, N).
+    Either operand may be one broadcast lane, (16, 1), against (16, N)."""
+    return _sc_binary("sc_mul", sc_mul_ref, a, b)
+
+
+def sc_add(a, b):
+    """Batched a + b mod l for canonical scalars; operands broadcast as in
+    ``sc_mul``."""
+    return _sc_binary("sc_add", sc_add_ref, a, b)
+
+
+def sc_sub(a, b):
+    """Batched a - b mod l for canonical scalars; operands broadcast as in
+    ``sc_mul``."""
+    return _sc_binary("sc_sub", sc_sub_ref, a, b)
+
+
+# =============================================================================
+# scalar_mul
+# =============================================================================
+
+
+def scalar_mul_ref(k, p):
+    """k * P per lane: 256 steps of acc = bit ? acc + addend : acc,
+    addend = 2 addend, least significant bit first (the TPU kernel's order).
+    The unified add also doubles, so a step is one plain add over 2N lanes:
+    (acc, addend) + (addend, addend). For tests at a few lanes."""
+    n = p[0].shape[1]
+    device = p[0].device
+    acc = (fe.zeros((n,), device), fe.ones((n,), device), fe.ones((n,), device),
+           fe.zeros((n,), device))
+    addend = p
+    for i in range(256):
+        bit = ((k[i >> 4] >> (i & 15)) & 1).to(torch.bool)
+        both = point_add_ref(tuple(torch.cat([a, d], dim=1) for a, d in zip(acc, addend)),
+                             tuple(torch.cat([d, d], dim=1) for d in addend))
+        acc = tuple(fe.select(bit, t[:, :n], a) for t, a in zip(both, acc))
+        addend = tuple(t[:, n:] for t in both)
+    return acc
+
+
+def scalar_mul(k, p):
+    """Batched variable-base scalar mul: scalars k (16, N) or one broadcast
+    lane (16, 1), points p as an (x, y, z, t) tuple of (16, N) int32 limbs →
+    k * P as such a tuple. All 256 bits of k are walked, so k need not be
+    canonical. The kernel walks the bits from the top and the plain version
+    from the bottom: the results are the same group elements in different
+    projective representations (compare encodings or with ``curve.eq``)."""
+    if not use_kernels(p[0]):
+        return scalar_mul_ref(k, p)
+    device = p[0].device
+    n = p[0].shape[-1]
+    _check_coords("scalar_mul p", p, device, (n,))
+    _check_coords("scalar_mul k", (k,), device, (n, 1))
+    out = _empty_coords(4, n, device)
+    _launch("scalar_mul", device, k.data_ptr(), k.shape[1],
+            *[c.data_ptr() for c in p], *[c.data_ptr() for c in out], n)
+    return tuple(out)

@@ -1,15 +1,20 @@
-"""Scalar-field (mod l) helpers for the aggregation round, 16x16-bit limbs.
+"""Batched scalar-field (mod l) arithmetic, 16x16-bit limbs.
 
-l = 2^252 + 27742317777372353535851937790883648493. Counterpart of the part
-of ``rofl_tpu.ops.sc`` that the round calls: the host codecs, ``neg`` and the
-wide reduction ``reduce_wide_bytes`` (a CUDA kernel on the card, see
-``ops/kernels.py``; its plain version is ``reduce_512`` here). Batched
-add/sub/mul and the sums arrive together with their kernels. Canonical (< l)
+l = 2^252 + 27742317777372353535851937790883648493. Counterpart of
+``rofl_tpu.ops.sc``. ``add``, ``sub``, ``mul`` and ``reduce_wide_bytes`` go
+through the wrappers in ``ops/kernels.py``: a CUDA kernel for tensors on the
+card, the plain version (built on the limb helpers here) for tensors on the
+CPU. Everything else (``neg``, ``inv``, the sums, the inner products,
+``powers``) is built on those, so it runs in the kernels on the card too.
+The sums are chains of log-many ``sc_add`` launches over zero-padded halves,
+so any length and any group size works on both devices. Canonical (< l)
 values at API boundaries; same (16, *batch) int32 layout as ``ops/fe.py``.
 Bit-exact with ``rofl_tpu_torch.spec.scalar``.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -35,7 +40,7 @@ def pack_scalars(values) -> np.ndarray:
 unpack_scalars = fe.unpack_scalars
 
 
-def _cond_sub_l(limbs: list) -> list:
+def cond_sub_l(limbs: list) -> list:
     """One conditional subtract of l from a 16-limb value (< 2^256)."""
     diff = []
     borrow = torch.zeros_like(limbs[0])
@@ -47,22 +52,22 @@ def _cond_sub_l(limbs: list) -> list:
     return [torch.where(ge, diff[k], limbs[k]) for k in range(NLIMB)]
 
 
-def neg(a: torch.Tensor) -> torch.Tensor:
-    """l - a for canonical a; 0 maps to l, which one conditional subtract
-    brings back to 0."""
+def l_minus(b: torch.Tensor) -> list:
+    """l - b for canonical b as 16 limb rows (borrow chain; b <= l, so no
+    final borrow). 0 maps to l."""
     out = []
-    borrow = torch.zeros_like(a[0])
+    borrow = torch.zeros_like(b[0])
     for k in range(NLIMB):
-        v = (_L_LIMBS[k] + 0x10000) - a[k] - borrow
+        v = (_L_LIMBS[k] + 0x10000) - b[k] - borrow
         out.append(v & MASK16)
         borrow = 1 - (v >> 16)
-    return torch.stack(_cond_sub_l(out))
+    return out
 
 
 # -- wide reduction, plain version (lists of (batch,)-shaped int64 rows) ------
 
 
-def _carry(limbs: list) -> list:
+def carry(limbs: list) -> list:
     """Full carry propagation; appends two overflow limbs."""
     out = []
     carry = torch.zeros_like(limbs[0])
@@ -83,7 +88,7 @@ def _mul_delta(a: list) -> list:
             p = limb * c  # < 2^32: the rows are int64
             cols[i + j] = cols[i + j] + (p & MASK16)
             cols[i + j + 1] = cols[i + j + 1] + (p >> 16)
-    return _carry(cols)
+    return carry(cols)
 
 
 def _const_minus(limbs: list, big: int) -> list:
@@ -98,7 +103,7 @@ def _const_minus(limbs: list, big: int) -> list:
     for k in range(n_out):
         sat = (0xFFFF if k < n_sub else 0) + ((rem >> (16 * k)) & 0xFFFF)
         out.append(sat - limbs[k] if k < n_sub else torch.full_like(limbs[0], sat))
-    return _carry(out)
+    return carry(out)
 
 
 def _fold_once(limbs: list, hi_bits: int, k_mult: int) -> list:
@@ -114,7 +119,7 @@ def _fold_once(limbs: list, hi_bits: int, k_mult: int) -> list:
     prod = _mul_delta(hi)[:(hi_bits + 125 + 15) // 16]
     t = _const_minus(prod, k_mult * L_INT)
     zero = torch.zeros_like(low[0])
-    return _carry([(low[k] if k < len(low) else zero) + (t[k] if k < len(t) else zero)
+    return carry([(low[k] if k < len(low) else zero) + (t[k] if k < len(t) else zero)
                    for k in range(max(len(low), len(t)))])
 
 
@@ -131,8 +136,63 @@ def reduce_512(limbs: list) -> torch.Tensor:
     v2 = _fold_once(v1, hi_bits=150, k_mult=1 << 36)[:(290 + 15) // 16]
     v3 = _fold_once(v2, hi_bits=38, k_mult=1)[:NLIMB]
     for _ in range(3):
-        v3 = _cond_sub_l(v3)
+        v3 = cond_sub_l(v3)
     return torch.stack(v3).to(fe.DTYPE)
+
+
+# -- constants ----------------------------------------------------------------
+
+
+def constant(v: int, batch_shape=(), device="cuda") -> torch.Tensor:
+    """Broadcastable constant scalar of shape (16,) + (1,)*len(batch)."""
+    limbs = pack_scalars([v]).reshape((NLIMB,) + (1,) * len(batch_shape))
+    return fe.to_tensor(limbs, device)
+
+
+zeros = fe.zeros
+ones = fe.ones
+
+
+# -- arithmetic (kernels on the card) -----------------------------------------
+
+
+def _binary(wrapper, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Give a kernel wrapper contiguous (16, N) operands; an operand with one
+    lane stays (16, 1) and is broadcast by the kernel."""
+    shape = np.broadcast_shapes(tuple(a.shape), tuple(b.shape))
+
+    def lanes(x):
+        if x.numel() == NLIMB:
+            return x.reshape(NLIMB, 1).contiguous()
+        return x.expand(shape).reshape(NLIMB, -1).contiguous()
+
+    return wrapper(lanes(a), lanes(b)).reshape(shape)
+
+
+def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a + b mod l (canonical inputs)."""
+    from . import kernels
+
+    return _binary(kernels.sc_add, a, b)
+
+
+def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a - b mod l (canonical inputs)."""
+    from . import kernels
+
+    return _binary(kernels.sc_sub, a, b)
+
+
+def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a * b mod l: full 512-bit product and wide reduction."""
+    from . import kernels
+
+    return _binary(kernels.sc_mul, a, b)
+
+
+def neg(a: torch.Tensor) -> torch.Tensor:
+    """-a mod l for canonical a."""
+    return sub(zeros((1,) * (a.dim() - 1), a.device), a)
 
 
 def reduce_wide_bytes(byte_cols: torch.Tensor) -> torch.Tensor:
@@ -141,6 +201,70 @@ def reduce_wide_bytes(byte_cols: torch.Tensor) -> torch.Tensor:
     from . import kernels
 
     return kernels.sc_reduce_wide(byte_cols)
+
+
+def is_zero(a: torch.Tensor) -> torch.Tensor:
+    return torch.all(a == 0, dim=0)
+
+
+def eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.all(a == b, dim=0)
+
+
+def inv(a: torch.Tensor) -> torch.Tensor:
+    """a^(l-2) mod l by square-and-multiply over the (public) exponent's
+    bits; inv(0) == 0."""
+    e = L_INT - 2
+    acc = a
+    for i in reversed(range(e.bit_length() - 1)):
+        acc = mul(acc, acc)
+        if (e >> i) & 1:
+            acc = mul(acc, a)
+    return acc
+
+
+def sum_reduce(a: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Sum scalars along a batch axis, which is kept with size 1. Log-depth
+    halving: pad the axis with zeros to a power of two, then add the upper
+    half onto the lower until one lane is left: log2 launches of ``sc_add``."""
+    ax = axis + 1  # skip limb dim
+    acc = a.movedim(ax, 1)
+    n = acc.shape[1]
+    m = 1 if n == 0 else 1 << (n - 1).bit_length()
+    if m != n:
+        acc = torch.cat([acc, zeros((m - n,) + tuple(acc.shape[2:]), a.device)], dim=1)
+    for _ in range(int(math.log2(m))):
+        w = acc.shape[1] // 2
+        acc = add(acc[:, :w], acc[:, w:])
+    return acc.movedim(1, ax)
+
+
+def sum_reduce_groups(a: torch.Tensor, group: int) -> torch.Tensor:
+    """Per-group mod-l sums over contiguous groups of any size:
+    (16, G·group) → (16, G)."""
+    g = a.shape[-1] // group
+    return sum_reduce(a.reshape(NLIMB, g, group), axis=1).reshape(NLIMB, g)
+
+
+def inner_product_groups(a: torch.Tensor, b: torch.Tensor, group: int) -> torch.Tensor:
+    """<a, b> mod l per contiguous group → (16, G)."""
+    return sum_reduce_groups(mul(a, b), group)
+
+
+def inner_product(a: torch.Tensor, b: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """<a, b> mod l along a batch axis."""
+    return sum_reduce(mul(a, b), axis=axis)
+
+
+def powers(x: torch.Tensor, n: int) -> torch.Tensor:
+    """[1, x, x^2, ..., x^(n-1)] for a single scalar x of shape (16, 1) →
+    (16, n). Block doubling: log2(n) rounds of two ``sc_mul`` launches."""
+    arr = ones((1,), x.device)
+    cur = x
+    while arr.shape[1] < n:
+        arr = torch.cat([arr, mul(arr, cur)], dim=1)
+        cur = mul(cur, cur)
+    return arr[:, :n].contiguous()
 
 
 def from_bytes_wide_array(data: np.ndarray) -> np.ndarray:

@@ -176,3 +176,77 @@ def test_sc_reduce_wide_on_host(lib):
     assert fe.unpack_scalars(out) == [v % L for v in wide]
     np.testing.assert_array_equal(
         out, kernels.sc_reduce_wide_ref(torch.from_numpy(cols)).numpy())
+
+
+SC_OPS = {
+    "sc_mul": (0, lambda a, b, L: a * b % L),
+    "sc_add": (1, lambda a, b, L: (a + b) % L),
+    "sc_sub": (2, lambda a, b, L: (a - b) % L),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SC_OPS))
+def test_scalar_op_on_host(lib, name):
+    """sc_mul, sc_add, sc_sub of csrc/sc25519.cuh against Python's % and the
+    plain versions: 0, 1, l-1, 2^252 in every pairing (for sc_sub that has
+    a < b and a = b), random pairs, and each operand as one broadcast lane."""
+    from rofl_tpu_torch.spec import scalar as SS
+
+    L = SS.L
+    op, want = SC_OPS[name]
+    edges = [0, 1, L - 1, 2**252, 2, L - 2]
+    a = [x for x in edges for _ in edges] + [
+        int.from_bytes(rng.bytes(32), "little") % L for _ in range(200)]
+    b = [y for _ in edges for y in edges] + [
+        int.from_bytes(rng.bytes(32), "little") % L for _ in range(200)]
+    b[-1] = a[-1]
+    n = len(a)
+    a_np, b_np = limbs_i32(a), limbs_i32(b)
+    plain = getattr(kernels, name + "_ref")
+    for a_lanes, b_lanes in ((n, n), (n, 1), (1, n)):
+        x = a_np if a_lanes == n else np.ascontiguousarray(a_np[:, 40:41])
+        y = b_np if b_lanes == n else np.ascontiguousarray(b_np[:, 41:42])
+        out = np.full((16, n), -1, np.int32)
+        lib.host_sc_op(op, ptr(x), a_lanes, ptr(y), b_lanes, ptr(out), n)
+        assert out.min() >= 0 and out.max() <= 0xFFFF
+        xs = a if a_lanes == n else [a[40]] * n
+        ys = b if b_lanes == n else [b[41]] * n
+        assert fe.unpack_scalars(out) == [want(p, q, L) for p, q in zip(xs, ys)]
+        np.testing.assert_array_equal(
+            out, plain(torch.from_numpy(x), torch.from_numpy(y)).numpy())
+
+
+def test_sc_mul_on_host_takes_any_16_bit_limbs(lib):
+    from rofl_tpu_torch.spec import scalar as SS
+
+    values = [2**256 - 1, 2**256 - 2**252, SS.L, SS.L + 1, 2**255] + [
+        int.from_bytes(rng.bytes(32), "little") for _ in range(40)]
+    n = len(values)
+    a_np, b_np = limbs_i32(values), limbs_i32(values[::-1])
+    out = np.zeros((16, n), np.int32)
+    lib.host_sc_op(0, ptr(a_np), n, ptr(b_np), n, ptr(out), n)
+    assert fe.unpack_scalars(out) == [x * y % SS.L for x, y in zip(values, values[::-1])]
+    np.testing.assert_array_equal(
+        out, kernels.sc_mul_ref(torch.from_numpy(a_np), torch.from_numpy(b_np)).numpy())
+
+
+def test_scalar_mul_ladder_on_host(lib):
+    """The ladder of csrc/scalar_mul.cu (ge_ladder_step from bit 255 down)
+    against the spec: k = 0, 1, l-1 and 2^256-1, the identity and the
+    basepoint as P, random pairs, and k as one broadcast lane."""
+    from rofl_tpu_torch.spec import scalar as SS
+
+    L = SS.L
+    p, _ = points()
+    n = len(p)
+    ks = [0, 1, L - 1, 2**256 - 1] + [
+        int.from_bytes(rng.bytes(32), "little") % L for _ in range(n - 4)]
+    pa = coords_i32(curve.pack_points(p, "cpu"))
+    k_np = limbs_i32(ks)
+    for k_lanes, k_arr, k_list in ((n, k_np, ks),
+                                   (1, np.ascontiguousarray(k_np[:, 5:6]), [ks[5]] * n)):
+        out = [np.zeros((16, n), np.int32) for _ in range(4)]
+        lib.host_scalar_mul(ptr(k_arr), k_lanes, *map(ptr, pa), *map(ptr, out), n)
+        got = curve.PointArray(*[torch.from_numpy(o) for o in out])
+        assert [bytes(r) for r in curve.compress_to_bytes(got)] == [
+            q.scalar_mul(k % L).compress() for q, k in zip(p, k_list)]

@@ -24,9 +24,11 @@ def imported_modules(path: Path) -> list[str]:
 def test_the_port_has_the_modules_of_the_slice():
     have = {str(p.relative_to(ROOT / "rofl_tpu_torch")) for p in FILES[:-1]}
     want = {"bindings.py", "convert.py", "spec/field.py", "spec/scalar.py",
-            "spec/ristretto.py", "spec/generators.py", "crypto/fp_codec.py",
-            "crypto/pedersen.py", "crypto/serde_vec.py", "ops/dispatch.py", "ops/fe.py",
-            "ops/sc.py", "ops/kernels.py", "ops/curve.py", "ops/fixed_base.py", "ops/bsgs.py"}
+            "spec/ristretto.py", "spec/generators.py", "spec/keccak.py", "spec/merlin.py",
+            "crypto/fp_codec.py", "crypto/pedersen.py", "crypto/serde_vec.py",
+            "crypto/batch_transcript.py", "crypto/sigma.py", "ops/dispatch.py", "ops/fe.py",
+            "ops/sc.py", "ops/kernels.py", "ops/curve.py", "ops/fixed_base.py", "ops/bsgs.py",
+            "ops/keccak_batch.py"}
     assert want <= have
 
 
@@ -44,4 +46,22 @@ def test_kernel_sources_are_in_the_package():
         text = (kernels.CSRC_DIR / src).read_text()
         assert "__global__" in text and 'extern "C"' in text
         assert "torch/extension.h" not in text
-    assert set(kernels.LAUNCHES) == set(kernels.KERNEL_SOURCES)
+    assert set(kernels.LAUNCHES) == set(kernels.KERNEL_SOURCES) == set(kernels._ARGTYPES)
+    assert {"sc_mul", "sc_add", "sc_sub", "scalar_mul"} <= set(kernels.KERNEL_SOURCES)
+    for name in kernels.KERNEL_SOURCES:  # each kernel has its plain version beside it
+        assert callable(getattr(kernels, name)) and callable(getattr(kernels, name + "_ref"))
+
+
+def test_the_port_does_not_carry_the_batched_verifier_as_a_stub():
+    from rofl_tpu_torch.crypto import sigma
+
+    assert not hasattr(sigma, "square_rand_proof_verify_batched")
+
+
+def test_no_python_integer_sum_in_the_cancelling_blindings():
+    import inspect
+
+    from rofl_tpu_torch.crypto import pedersen
+
+    source = inspect.getsource(pedersen.cancelling_scalar_limbs)
+    assert "unpack_scalars" not in source and "sum_reduce" in source

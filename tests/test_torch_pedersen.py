@@ -133,7 +133,7 @@ def test_rnd_scalar_limbs_equals_the_jax_host_sampler():
     assert all(v < SS.L for v in tsc.unpack_scalars(got))
 
 
-@pytest.mark.parametrize("n_vec", [2, 3, 5])
+@pytest.mark.parametrize("n_vec", [2, 3, 4, 5])
 def test_cancelling_scalar_limbs(n_vec):
     got = tpedersen.cancelling_scalar_limbs(n_vec, N, np.random.default_rng(23), "cpu")
     want = jpedersen.cancelling_scalar_limbs(n_vec, N, np.random.default_rng(23))
@@ -142,6 +142,29 @@ def test_cancelling_scalar_limbs(n_vec):
         np.testing.assert_array_equal(g, np.asarray(w))
     totals = [sum(col) % SS.L for col in zip(*[tsc.unpack_scalars(g) for g in got])]
     assert totals == [0] * N
+
+
+def test_cancelling_sum_runs_through_the_scalar_kernels_wrappers(monkeypatch):
+    """The n-1 vectors are summed by sc_add and negated by sc_sub (their plain
+    versions here; their kernels on the card), not as Python integers."""
+    from rofl_tpu_torch.ops import kernels as tkernels
+
+    calls = {"sc_add": 0, "sc_sub": 0}
+    for name in calls:
+        def counted(a, b, name=name, wrapped=getattr(tkernels, name)):
+            calls[name] += 1
+            return wrapped(a, b)
+        monkeypatch.setattr(tkernels, name, counted)
+    got = tpedersen.cancelling_scalar_limbs(4, N, np.random.default_rng(23), "cpu")
+    assert calls == {"sc_add": 2, "sc_sub": 1}  # 3 vectors padded to 4: two halvings
+    assert all(g.dtype == np.uint32 and g.shape == (16, N) for g in got)
+
+
+def test_rnd_scalar_tensor_is_the_sampler_of_rnd_scalar_limbs():
+    t = tpedersen.rnd_scalar_tensor(N, np.random.default_rng(17), "cpu")
+    assert t.dtype == tfe.DTYPE and t.shape == (16, N)
+    np.testing.assert_array_equal(
+        tfe.to_numpy(t), tpedersen.rnd_scalar_limbs(N, np.random.default_rng(17), "cpu"))
 
 
 def test_sc_neg_and_codecs():
