@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port once on the card: build the kernels, hold each
-against its plain version, run the secure-aggregation round and the
-Σ-protocol path (prove → wire → per-lane verify) at full width.
+against its plain version, run the secure-aggregation round, the Σ-protocol
+path (prove → wire → per-lane verify) and the L2-norm client round
+(encrypt → wire → verify) at full width.
 
     python3 chip_smoke.py
 
@@ -11,13 +12,16 @@ line is ``{"ok": true, "device": {...}}``.
 
 Phases:
   device   the card's name and power limit, torch and CUDA versions
-  build    nvcc builds the nine kernels from rofl_tpu_torch/csrc (in
-           parallel) and reports ptxas' registers and spill bytes for each
+  build    nvcc builds the kernels of the eleven wrappers from the ten sources in
+           rofl_tpu_torch/csrc (in parallel) and reports ptxas' registers and
+           spill bytes for each
   kernels  point_add, point_double, compress, decompress, sc_reduce_wide,
-           sc_mul, sc_add, sc_sub, scalar_mul against their plain torch
-           versions on the card, at the lane counts the two paths use and at
-           N = 1 and 77, random and edge inputs, canonical limbs bit-equal
-           (scalar_mul: canonical encodings of the results); times at N = 50000
+           sc_mul, sc_add, sc_sub, scalar_mul, msm_flat, msm_groups against
+           their plain torch versions on the card, at the lane counts the
+           paths use and at N = 1 and 77, random and edge inputs, canonical
+           limbs bit-equal (scalar_mul, the MSMs: canonical encodings of the
+           results); times at N = 50000; the MSMs also held equal and timed,
+           with their plain versions, at the l2 path's shapes
   round    d = 50000, 4 clients, FpConfig(16, 7), through ``bindings``:
            cancelling blindings (keyed Keccak XOF on the card, reduced mod l
            by sc_reduce_wide) -> commit -> add_commitments -> extract_values
@@ -32,13 +36,23 @@ Phases:
            lane; the first lanes of each proof are recomputed by the
            pure-Python spec (spec/merlin.py, spec/ristretto.py) and held equal
            byte for byte; the transcripts are timed apart.
-Launch counts are set to zero just before each of the two paths and read just
-after it.
+  l2       d = 50000, bench.py's headline configuration (16 partitions, value
+           range 8, L2 range 16, FpConfig(16, 7), its element scale, seed 7):
+           EncParamsL2.encrypt -> serialize -> deserialize -> verify, once to
+           warm up and once timed, printed as l2_path_prove_verify_s_d50000
+           with its parts, each stage also timed apart; a flipped bit in one
+           chunk's range proof and a tampered square-rand lane are refused,
+           values out of the L2 bound raise, the JAX package's committed
+           known-answer round (tests/data/torch_port_l2_kat.json) verifies on
+           the card and a small round made on the card verifies on the CPU.
+Launch counts are set to zero just before each path (for l2: its timed run)
+and read just after it.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -52,9 +66,14 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
 
 from rofl_tpu_torch import bindings  # noqa: E402
+from rofl_tpu_torch.crypto import l2_range_proof as L2RP  # noqa: E402
 from rofl_tpu_torch.crypto import pedersen, sigma  # noqa: E402
+from rofl_tpu_torch.crypto import range_proof as RP  # noqa: E402
+from rofl_tpu_torch.crypto import range_proof_vec as RPV  # noqa: E402
 from rofl_tpu_torch.crypto import serde_vec as sv  # noqa: E402
 from rofl_tpu_torch.crypto.fp_codec import FpConfig  # noqa: E402
+from rofl_tpu_torch.fl import params as P  # noqa: E402
+from rofl_tpu_torch.fl import wire  # noqa: E402
 from rofl_tpu_torch.ops import bsgs, curve, fe, kernels, sc  # noqa: E402
 from rofl_tpu_torch.spec import generators as G  # noqa: E402
 from rofl_tpu_torch.spec import ristretto as SR  # noqa: E402
@@ -132,6 +151,14 @@ KERNEL_FACTS = {
     "scalar_mul": dict(
         source="rofl_tpu_torch/csrc/scalar_mul.cu", replaces="rofl_tpu/ops/kernels.py:475",
         madds=252 * POINT_DOUBLE_MADDS + (64 + 14) * POINT_ADD_MADDS, bytes=9 * LIMBS),
+    # The MSMs' bound is computed per shape by msm_bound_ms: 320 bytes a term
+    # (a point and a 64-byte scalar), Pippenger's additions at its best window.
+    "msm_flat": dict(
+        source="rofl_tpu_torch/csrc/msm.cu", replaces="rofl_tpu/ops/kernels.py:763",
+        madds=None, bytes=LIMBS * 4 + 64),
+    "msm_groups": dict(
+        source="rofl_tpu_torch/csrc/msm.cu", replaces="rofl_tpu/ops/kernels.py:763",
+        madds=None, bytes=LIMBS * 4 + 64),
 }
 NEW_KERNELS = ("sc_mul", "sc_add", "sc_sub", "scalar_mul")
 # Lane counts the round gives the kernels (fixed-base tables: 1 and 8192;
@@ -176,6 +203,17 @@ def device_ms(fn, reps: int = 20, rounds: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def msm_bound_ms(n: int, group: int) -> tuple[float, str]:
+    """Least time for n terms in groups of `group`: the bytes (each term read
+    once) over the memory rate, or Pippenger's point additions at its best
+    window c, ceil(256 / c) * (group + 2^(c+1)) a group, at the 1152
+    multiply-adds of an addition, over the int32 rate."""
+    adds = min(math.ceil(256 / c) * (group + 2 ** (c + 1)) for c in range(1, 25))
+    t_bytes = n * KERNEL_FACTS["msm_flat"]["bytes"] / HBM_BYTES_PER_S
+    t_ops = (n // group) * adds * POINT_ADD_MADDS * 2 / INT32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def bound_ms(name: str, n: int) -> tuple[float, str]:
@@ -384,6 +422,7 @@ def phase_kernels() -> dict:
         if n == 4 * D:
             records["scalar_mul"]["ms_at_4n"] = device_ms(
                 lambda: kernels.scalar_mul(k, p), reps=2, rounds=3)
+    check_msm(records, hold, rng)
     torch.cuda.synchronize()
     bad = [name for name, r in records.items() if not r["match"]]
     emit({"phase": "kernels", "tolerance": "canonical limbs and masks bit-equal (0)",
@@ -391,6 +430,77 @@ def phase_kernels() -> dict:
     if bad:
         sys.exit(f"kernels disagree with their plain versions: {bad}")
     return records
+
+
+# The MSMs against their plain version (a ladder per lane, then the halving
+# sums): flat at N = 1 and 77, in 16 groups of 2, 64 and 4096; the first
+# lanes hold k = 0, 1, l-1 on a random point, the basepoint and the identity;
+# one broadcast scalar at 77 lanes and at 16 groups of 64. Then held equal
+# and timed, kernel and plain version on the same inputs, at the l2 path's
+# shapes, where the kernel runs several lanes a thread: the provers' S sum
+# (16 groups of 65536 terms), the batched square-rand verify (300 000 terms)
+# and the range proofs' combined verify (131 618 terms).
+MSM_FLAT_LANES = (1, 77)
+MSM_GROUPS = (2, 64, 4096)
+MSM_N_GROUPS = 16
+MSM_PATH_SHAPES = {"msm_groups": (16 << 16, 1 << 16), "msm_flat": (300_000, 300_000)}
+MSM_VERIFY_TERMS = 131_618
+
+
+def check_msm(records: dict, hold, rng: np.random.Generator) -> None:
+    def encodings(out):
+        return (kernels.compress(tuple(out)),)
+
+    def call(name, k, p, group):
+        if name == "msm_flat":
+            return kernels.msm_flat(k, p), (lambda: kernels.msm_flat_ref(k, p))
+        return kernels.msm_groups(k, p, group), (lambda: kernels.msm_groups_ref(k, p, group))
+
+    for name in ("msm_flat", "msm_groups"):
+        records[name]["checked_lanes"] = []
+    for n in MSM_FLAT_LANES:
+        k, p = test_ladder_operands(n, rng)
+        hold("msm_flat", encodings(kernels.msm_flat(k, p)), encodings(kernels.msm_flat_ref(k, p)))
+        records["msm_flat"]["checked_lanes"].append(n)
+        if n > 1:
+            k1 = k[:, n // 2:n // 2 + 1].contiguous()
+            hold("msm_flat", encodings(kernels.msm_flat(k1, p)),
+                 encodings(kernels.msm_flat_ref(k1, p)))
+    for group in MSM_GROUPS:
+        n = group * MSM_N_GROUPS
+        k, p = test_ladder_operands(n, rng)
+        hold("msm_groups", encodings(kernels.msm_groups(k, p, group)),
+             encodings(kernels.msm_groups_ref(k, p, group)))
+        records["msm_groups"]["checked_lanes"].append([MSM_N_GROUPS, group])
+        if group == 64:
+            k1 = k[:, 5:6].contiguous()
+            hold("msm_groups", encodings(kernels.msm_groups(k1, p, group)),
+                 encodings(kernels.msm_groups_ref(k1, p, group)))
+
+    for name, (n, group) in MSM_PATH_SHAPES.items():
+        k, p = test_ladder_operands(n, rng)
+        rec = records[name]
+        got, plain = call(name, k, p, group)
+        want, plain_seconds = synced(plain)
+        hold(name, encodings(got), encodings(want))
+        rec["checked_lanes"].append(n if name == "msm_flat" else [n // group, group])
+        rec["n"], rec["group"] = n, group
+        rec["ms"] = device_ms(lambda: call(name, k, p, group)[0], reps=2, rounds=3)
+        rec["plain_ms"] = 1e3 * plain_seconds
+        rec["bound_ms"], rec["bound_by"] = msm_bound_ms(n, group)
+        rec["library_ms"] = None
+        if name == "msm_flat":
+            kv, pv = k[:, :MSM_VERIFY_TERMS].contiguous(), tuple(
+                c[:, :MSM_VERIFY_TERMS].contiguous() for c in p)
+            got, plain = call(name, kv, pv, MSM_VERIFY_TERMS)
+            want, plain_seconds = synced(plain)
+            hold(name, encodings(got), encodings(want))
+            rec["checked_lanes"].append(MSM_VERIFY_TERMS)
+            rec["ms_at_131618"] = device_ms(lambda: kernels.msm_flat(kv, pv), reps=2, rounds=3)
+            rec["plain_ms_at_131618"] = 1e3 * plain_seconds
+            rec["bound_ms_at_131618"] = msm_bound_ms(MSM_VERIFY_TERMS, MSM_VERIFY_TERMS)[0]
+        del k, p, got, want
+        torch.cuda.empty_cache()
 
 
 # -- phase 4: the round ----------------------------------------------------------
@@ -750,21 +860,160 @@ def phase_sigma(state: dict) -> dict:
     return launches
 
 
+# -- phase 6: the L2-norm client round ----------------------------------------------
+
+L2_SEED = 7
+L2_CFG = P.CryptoConfig(value_range=8, n_partition=16, l2_value_range=16, check_percentage=1.0,
+                        enc_type=P.ENC_L2_TYPE, fp=FP)
+L2_KERNELS = ("msm_flat", "msm_groups", "scalar_mul", "compress")
+KAT_PATH = "tests/data/torch_port_l2_kat.json"
+SMALL_D = 7
+
+
+def l2_wire_bytes(enc: P.EncParamsL2) -> int:
+    """The length EncParamsL2.serialize must have, from its parts: each field
+    a one-byte tag, a varint length and its bytes; the two int32 fields a tag
+    and a one-byte varint; then the varint length prefix of the message."""
+    def varint_len(n):
+        return max(1, (n.bit_length() + 6) // 7)
+
+    fields = [96 * enc.enc_values.c_sq.x.shape[1], 192 * enc.square_proofs.z_m.shape[1]]
+    fields += [len(p.to_bytes()) for p in enc.range_proofs + [enc.square_range_proof]]
+    payload = sum(1 + varint_len(n) + n for n in fields) + 2 + 2
+    return varint_len(payload) + payload
+
+
+def phase_l2() -> dict:
+    rng = np.random.default_rng(L2_SEED)
+    seconds = {}
+
+    def stage(name, fn):
+        out, seconds[name] = synced(fn)
+        return out
+
+    # bench.py's element scale (l2rangeproof_bench.rs:44-49): the fixed-point
+    # squared norm stays inside the 16-bit window; the crypto cost does not
+    # depend on the values
+    elem = (FP.l2_clip_bound(16) / D) ** 0.5 / FP.scale / 10.0
+    vals = rng.uniform(-elem, elem, D).astype(np.float32)
+    blind = pedersen.rnd_scalar_tensor(D, rng, DEVICE)
+
+    def round_trip(prefix):
+        enc = stage(f"{prefix}encrypt", lambda: P.EncParamsL2.encrypt(vals, blind, L2_CFG, rng,
+                                                                      DEVICE))
+        data = stage(f"{prefix}serialize", enc.serialize)
+        dec = stage(f"{prefix}deserialize", lambda: P.EncParamsL2.deserialize(data, FP, DEVICE))
+        ok = stage(f"{prefix}verify", lambda: dec.verify(rng))
+        return enc, data, dec, ok
+
+    _, _, _, warm_ok = round_trip("warmup_")
+    start_path()
+    enc, data, dec, ok = round_trip("")
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    checks = {"warmup_round_verifies": bool(warm_ok), "honest_round_verifies": bool(ok),
+              "wire_bytes_match_parts": len(data) == l2_wire_bytes(enc)}
+
+    # the stages of encrypt and verify, each timed apart on this round's data
+    clipped = RPV.clip_f32_to_range_vec(vals, FP, L2_CFG.value_range)
+    r2 = pedersen.rnd_scalar_tensor(D, rng, DEVICE)
+    _, commits = stage("encrypt.range_proofs", lambda: RPV.create_rangeproof(
+        clipped, blind, FP, L2_CFG.value_range, L2_CFG.n_partition, rng, DEVICE))
+    stage("encrypt.l2_sum_proof", lambda: L2RP.create_rangeproof_l2(
+        clipped, r2, FP, L2_CFG.l2_value_range, rng, DEVICE))
+    m = fe.to_tensor(FP.f32_to_scalar_limbs(clipped), DEVICE)
+    stage("encrypt.square_rand_prove", lambda: sigma.square_rand_proof_prove(
+        m, blind, r2, rng, existing=commits))
+    stage("verify.square_rand_batched", lambda: sigma.square_rand_proof_verify_batched(
+        dec.square_proofs, dec.enc_values, rng))
+    stage("verify.range_proofs", lambda: RPV.verify_rangeproof(
+        dec.range_proofs, dec.enc_values.c.L, FP, dec.prove_range, rng))
+    sum_pt = curve.unpack_points(curve.tree_sum(dec.enc_values.c_sq))[0]
+    stage("verify.l2_sum_proof", lambda: L2RP.verify_rangeproof_l2(
+        dec.square_range_proof, sum_pt, dec.l2_prove_range, rng, DEVICE))
+
+    # a flipped bit in one chunk's range proof (the lowest bit of t_x_blinding)
+    chunk = len(dec.range_proofs) // 3
+    raw = bytearray(dec.range_proofs[chunk].to_bytes())
+    raw[5 * 32] ^= 1
+    bad = P.EncParamsL2(dec.enc_values, dec.square_proofs,
+                        dec.range_proofs[:chunk] + [RP.RangeProof.from_bytes(bytes(raw))]
+                        + dec.range_proofs[chunk + 1:], dec.square_range_proof, dec.prove_range,
+                        dec.l2_prove_range, FP)
+    checks["flipped_range_proof_bit_refused"] = not bad.verify(rng)
+    # one lane of z_r2 plus one
+    lane = fe.to_tensor(sc.pack_scalars([1]), DEVICE)
+    z_r2 = dec.square_proofs.z_r2.clone()
+    z_r2[:, D // 2:D // 2 + 1] = sc.add(z_r2[:, D // 2:D // 2 + 1].contiguous(), lane)
+    tampered = sigma.SquareRandProofVec(dec.square_proofs.c_prime, dec.square_proofs.c_sq_prime,
+                                        dec.square_proofs.z_m, dec.square_proofs.z_r1, z_r2)
+    checks["tampered_square_rand_lane_refused"] = not sigma.square_rand_proof_verify_batched(
+        tampered, dec.enc_values, rng)
+    # every value at the edge of the 8-bit range: the fixed-point squared sum
+    # (50000 * 127^2) wraps the 16-bit window. At L2 range 16 with
+    # FpConfig(16, 7) the decoded sum never exceeds the bound, so the JAX
+    # package's check_l2 raises L2OverflowError for these values (held equal
+    # on the CPU by tests/test_torch_l2_params.py)
+    try:
+        P.EncParamsL2.encrypt(np.full(D, 0.99, np.float32), blind, L2_CFG, rng, DEVICE)
+        checks["out_of_bounds_raises_l2_overflow_error"] = False
+    except L2RP.L2OverflowError:
+        checks["out_of_bounds_raises_l2_overflow_error"] = True
+
+    # the JAX package's round (d = 7, 2 partitions), committed, on the card
+    with open(KAT_PATH) as f:
+        kat = json.load(f)
+    kat_fp = FpConfig(*kat["fp"])
+    kat_round = P.EncParamsL2.deserialize(bytes.fromhex(kat["params"]["serialized"]), kat_fp,
+                                          DEVICE)
+    checks["jax_kat_round_verifies_on_card"] = stage("kat_verify", lambda: kat_round.verify(rng))
+    # a small round made on the card verifies on the CPU
+    small_cfg = P.CryptoConfig(value_range=kat["value_range"], n_partition=kat["n_partition"],
+                               l2_value_range=kat["l2_value_range"], fp=kat_fp,
+                               enc_type=P.ENC_L2_TYPE)
+    small_vals = np.asarray(kat["values"], np.float32)[:SMALL_D]
+    small = P.EncParamsL2.encrypt(small_vals, pedersen.rnd_scalar_tensor(SMALL_D, rng, DEVICE),
+                                  small_cfg, rng, DEVICE)
+    checks["card_small_round_verifies_on_cpu"] = stage(
+        "small_round_verify_on_cpu",
+        lambda: P.EncParamsL2.deserialize(small.serialize(), kat_fp, "cpu").verify(rng))
+
+    prove_s, verify_s = seconds["encrypt"], seconds["verify"]
+    result = {
+        "phase": "l2", "d": D, "n_partition": L2_CFG.n_partition, "value_range": 8,
+        "l2_value_range": 16, "fp": [FP.n_bits, FP.n_frac], "seed": L2_SEED,
+        "metric": "l2_path_prove_verify_s_d50000", "value": prove_s + verify_s,
+        "prove_s": prove_s, "verify_s": verify_s, "wire_bytes": len(data), **checks,
+        "peak_device_bytes": peak, "seconds": seconds, "launches": launches,
+    }
+    emit(result)
+    failed = [name for name, ok in checks.items() if not ok]
+    failed += [f"{name} was never launched" for name in L2_KERNELS if launches[name] == 0]
+    if failed:
+        sys.exit(f"l2 failed: {failed}")
+    return launches
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
     records = phase_kernels()
     round_launches, state = phase_round()
     sigma_launches = phase_sigma(state)
+    l2_launches = phase_l2()
     print(smi, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "match",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "n")
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "n",
+            "checked_lanes")
+    msm_keys = ("group", "ms_at_131618", "plain_ms_at_131618", "bound_ms_at_131618")
     rows = []
     for name, rec in records.items():
-        by_path = {"round": round_launches[name], "sigma": sigma_launches[name]}
+        by_path = {"round": round_launches[name], "sigma": sigma_launches[name],
+                   "l2": l2_launches[name]}
         rec = {**rec, **KERNEL_FACTS[name], "launches": sum(by_path.values()),
                "launches_by_path": by_path}
-        rows.append({k: rec[k] for k in keys})
+        rows.append({**{k: rec[k] for k in keys}, **{k: rec[k] for k in msm_keys if k in rec}})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,13 +1,13 @@
-"""FFI-parity API, aggregation and Σ-proof sections: the reference's C
-bindings for the secure-aggregation round and the rand / square-rand proofs
-as one flat Python module.
+"""FFI-parity API, aggregation, range-proof, Σ-proof and L2 sections: the
+reference's C bindings for the secure-aggregation round, the L∞ and L2 range
+proofs and the rand / square-rand proofs as one flat Python module.
 
 Counterpart of ``rofl_tpu.bindings``: the same functions taking and returning
 the identical bincode wire formats (see crypto/serde_vec.py), so a caller
-can switch between the two packages blob for blob. The range-proof and L2
-bindings follow with the range proofs. Heavy math runs on `device` (default
-the card): points are decoded, added, multiplied, committed and encoded and
-scalars multiplied and summed by the CUDA kernels.
+can switch between the two packages blob for blob. Heavy math runs on
+`device` (default the card): points are decoded, added, multiplied,
+committed, summed and encoded and scalars multiplied and summed by the CUDA
+kernels.
 
 Error-returning functions (the PyRes family) raise ValueError with the
 reference's error message semantics instead of returning {ret,msg} structs.
@@ -18,11 +18,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .crypto import pedersen, sigma
+from .crypto import l2_range_proof as l2rp
+from .crypto import pedersen, range_proof_vec, sigma
 from .crypto import serde_vec as sv
 from .crypto.fp_codec import FpConfig
 from .ops import bsgs, curve, fe, sc
 from .ops.curve import PointArray
+from .spec import ristretto as SR
 
 DEFAULT_FP = FpConfig(16, 7)
 
@@ -105,6 +107,31 @@ def extract_values(commit_blob: bytes, fp: FpConfig = DEFAULT_FP,
     return fp.scalar_limbs_to_f32(fe.to_numpy(limbs))
 
 
+# -- range proofs --------------------------------------------------------------
+
+
+def create_rangeproof(values: np.ndarray, blinding_blob: bytes, range_exp: int,
+                      n_partition: int, fp: FpConfig = DEFAULT_FP,
+                      rng: np.random.Generator | None = None,
+                      device="cuda") -> tuple[bytes, bytes]:
+    """(Vec<RangeProof>, Vec<RistrettoPoint>) blobs (bindings32.rs:228-261)."""
+    rng = rng or np.random.default_rng()
+    blind = sv.deserialize_scalar_vec(blinding_blob)
+    proofs, commits = range_proof_vec.create_rangeproof(
+        np.asarray(values, np.float32), blind, fp, range_exp, n_partition, rng, device)
+    return sv.serialize_range_proof_vec(proofs), sv.serialize_rp_vec(commits)
+
+
+def verify_rangeproof(commit_blob: bytes, proof_blob: bytes, range_exp: int,
+                      fp: FpConfig = DEFAULT_FP, rng: np.random.Generator | None = None,
+                      device="cuda") -> bool:
+    """bindings32.rs:265-287."""
+    rng = rng or np.random.default_rng()
+    pts = sv.deserialize_rp_vec(commit_blob, device)
+    proofs = sv.deserialize_range_proof_vec(proof_blob)
+    return range_proof_vec.verify_rangeproof(proofs, pts, fp, range_exp, rng)
+
+
 # -- rand proofs ---------------------------------------------------------------
 
 
@@ -148,6 +175,47 @@ def verify_squarerandproof(commit_blob: bytes, proof_blob: bytes, device="cuda")
     c = sv.deserialize_squaretriple_vec(commit_blob, device)
     proof = sv.deserialize_square_rand_proof_vec(proof_blob, device)
     return bool(sigma.square_rand_proof_verify(proof, c).all())
+
+
+# -- combined L2 path ----------------------------------------------------------
+
+
+def create_l2proof(values: np.ndarray, blinding1_blob: bytes, blinding2_blob: bytes,
+                   range_exp: int, n_partition: int, fp: FpConfig = DEFAULT_FP,
+                   rng: np.random.Generator | None = None,
+                   device="cuda") -> tuple[bytes, bytes, bytes, bytes]:
+    """One-call square + range + sum L2 proof (bindings32.rs:441-503):
+    (Vec<SquareRandProof>, Vec<SquareRandProofCommitments>, RangeProof,
+    RistrettoPoint) blobs. `n_partition` is unused, as in the reference."""
+    rng = rng or np.random.default_rng()
+    vals = np.asarray(values, np.float32)
+    b2_limbs = sv.deserialize_scalar_vec(blinding2_blob)
+    range_proof, square_commit = l2rp.create_rangeproof_l2(
+        vals, sc.unpack_scalars(b2_limbs), fp, range_exp, rng, device)
+    m = fe.to_tensor(fp.f32_to_scalar_limbs(vals), device)
+    r1 = fe.to_tensor(sv.deserialize_scalar_vec(blinding1_blob), device)
+    rand_proof, commits = sigma.square_rand_proof_prove(m, r1, fe.to_tensor(b2_limbs, device), rng)
+    return (sv.serialize_square_rand_proof_vec(rand_proof), sv.serialize_squaretriple_vec(commits),
+            sv.serialize_range_proof(range_proof), sv._wrap_bytes(square_commit.compress()))
+
+
+def verify_l2proof(commit_blob: bytes, randproof_blob: bytes, rangeproof_blob: bytes,
+                   square_blob: bytes, prove_range: int, fp: FpConfig = DEFAULT_FP,
+                   rng: np.random.Generator | None = None, device="cuda") -> bool:
+    """bindings32.rs:507-552, with the Σ c_sq == square commitment check
+    (529-538) before the proofs."""
+    rng = rng or np.random.default_rng()
+    c = sv.deserialize_squaretriple_vec(commit_blob, device)
+    rand_proof = sv.deserialize_square_rand_proof_vec(randproof_blob, device)
+    range_proof = sv.deserialize_range_proof(rangeproof_blob)
+    sq_raw = sv._iter_bytes_vec(sv._u64(1) + square_blob)[0]
+    square_commit = sv.decompress_bytes_list([sq_raw], device)
+    if not bool(curve.eq(curve.tree_sum(c.c_sq, axis=0), square_commit).all()):
+        raise ValueError("sum of square commitments mismatch (SumError)")
+    ok_rand = bool(sigma.square_rand_proof_verify(rand_proof, c).all())
+    ok_range = l2rp.verify_rangeproof_l2(range_proof, SR.decompress(sq_raw), prove_range, rng,
+                                         device)
+    return ok_rand and ok_range
 
 
 # -- splits / joins ------------------------------------------------------------
@@ -199,6 +267,11 @@ def equals_neutral_group_element_vec(commit_blob: bytes, device="cuda") -> list[
     """Per-element identity check (bindings32.rs:693-704)."""
     pts = sv.deserialize_rp_vec(commit_blob, device)
     return curve.eq(pts, curve.identity(pts.batch_shape, pts.device)).tolist()
+
+
+def clip_to_range(values: np.ndarray, range_exp: int, fp: FpConfig = DEFAULT_FP) -> np.ndarray:
+    """bindings32.rs:652-658."""
+    return range_proof_vec.clip_f32_to_range_vec(np.asarray(values, np.float32), fp, range_exp)
 
 
 def create_zero_scalar_vector(length: int) -> bytes:

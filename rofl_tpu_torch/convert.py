@@ -14,7 +14,10 @@ import numpy as np
 import torch
 
 from .crypto import sigma
+from .crypto.fp_codec import FpConfig
 from .crypto.pedersen import ElGamalPairArray
+from .crypto.range_proof import RangeProof
+from .fl.params import EncParamsL2
 from .ops import fe
 from .ops.curve import PointArray
 
@@ -122,3 +125,36 @@ def square_commit_from_numpy(c_l, c_sq, device="cuda") -> sigma.SquareCommitVec:
 
 def square_commit_to_numpy(c: sigma.SquareCommitVec) -> tuple:
     return point_to_numpy(c.c_l), point_to_numpy(c.c_sq)
+
+
+# -- the L2 round ------------------------------------------------------------------
+
+
+def bp_gens_from_numpy(gens_G, gens_H, device="cuda") -> tuple[PointArray, PointArray]:
+    """``rofl_tpu.crypto.range_proof.device_bp_gens(n, m)``'s two point
+    arrays, each given as its four numpy coordinate arrays → the pair
+    ``rofl_tpu_torch.crypto.range_proof.device_bp_gens`` returns."""
+    return point_from_numpy(*gens_G, device=device), point_from_numpy(*gens_H, device=device)
+
+
+def enc_params_l2_from_numpy(enc_values, square_proofs, range_proofs, square_range_proof,
+                             prove_range: int, l2_prove_range: int, fp: FpConfig,
+                             device="cuda") -> EncParamsL2:
+    """A ``rofl_tpu.fl.params.EncParamsL2`` given field by field → the
+    port's. enc_values and square_proofs in the layouts of
+    ``square_rand_commit_to_numpy`` and ``square_rand_proof_to_numpy``; the
+    range proofs as their ``to_bytes()`` (the same in both packages)."""
+    return EncParamsL2(
+        square_rand_commit_from_numpy(*enc_values, device=device),
+        square_rand_proof_from_numpy(*square_proofs, device=device),
+        [RangeProof.from_bytes(b) for b in range_proofs],
+        RangeProof.from_bytes(square_range_proof),
+        prove_range, l2_prove_range, FpConfig(fp.n_bits, fp.n_frac))
+
+
+def enc_params_l2_to_numpy(p: EncParamsL2) -> tuple:
+    """The port's EncParamsL2 → the arguments of ``enc_params_l2_from_numpy``
+    (without the device), in the order of the JAX dataclass's fields."""
+    return (square_rand_commit_to_numpy(p.enc_values), square_rand_proof_to_numpy(p.square_proofs),
+            [r.to_bytes() for r in p.range_proofs], p.square_range_proof.to_bytes(),
+            p.prove_range, p.l2_prove_range, p.fp)

@@ -1,8 +1,7 @@
 """Bincode-compatible (de)serializers — wire parity with the reference.
 
-Counterpart of the scalar, point, compressed-point, ElGamal-pair and
-Σ-proof codecs of ``rofl_tpu.crypto.serde_vec``; the range-proof codecs
-follow with the range proofs.
+Counterpart of the scalar, point, compressed-point, ElGamal-pair,
+Σ-proof and range-proof codecs of ``rofl_tpu.crypto.serde_vec``.
 
 The reference serializes every crypto object through serde's
 `serialize_bytes`, which bincode encodes as a u64 little-endian length
@@ -30,10 +29,10 @@ import numpy as np
 
 from ..ops import curve, fe, sc
 from ..ops.curve import PointArray
-from ..spec import field as SF
 from ..spec import scalar as SS
 from . import sigma
 from .pedersen import ElGamalPairArray
+from .range_proof import RangeProof
 
 
 def _u64(n: int) -> bytes:
@@ -186,10 +185,7 @@ def decompress_rows(rows: np.ndarray, device="cuda") -> PointArray:
     """(N, 32) uint8 encodings → PointArray on `device`; raises on a
     non-canonical field encoding (s >= p or s odd, per dalek decompress) and
     on an encoding that is no point."""
-    limbs = _bytes_to_limbs(rows)
-    if not _limbs_below(limbs, SF.P).all() or (rows[:, 0] & 1).any():
-        raise ValueError("non-canonical point encoding")
-    pts, valid = curve.decompress(fe.to_tensor(limbs, device))
+    pts, valid = curve.decompress_rows(rows, device)
     if not bool(valid.all()):
         raise ValueError("invalid ristretto encoding")
     return pts
@@ -292,3 +288,23 @@ def deserialize_square_proof_vec(data: bytes, device="cuda") -> sigma.SquareProo
         data, 2, 3, "SquareProof", "non-canonical scalars", device)
     return sigma.SquareProofVec(c_l_prime=c_l_prime, c_sq_prime=c_sq_prime,
                                 z_m=z_m, z_r1=z_r1, z_r2=z_r2)
+
+
+# -- RangeProof ---------------------------------------------------------------
+
+
+def serialize_range_proof(proof: RangeProof) -> bytes:
+    return _wrap_bytes(proof.to_bytes())
+
+
+def deserialize_range_proof(data: bytes) -> RangeProof:
+    ln, off = _read_u64(data, 0)
+    return RangeProof.from_bytes(data[off:off + ln])
+
+
+def serialize_range_proof_vec(proofs: list[RangeProof]) -> bytes:
+    return _bytes_vec([p.to_bytes() for p in proofs])
+
+
+def deserialize_range_proof_vec(data: bytes) -> list[RangeProof]:
+    return [RangeProof.from_bytes(raw) for raw in _iter_bytes_vec(data)]

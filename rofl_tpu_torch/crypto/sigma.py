@@ -31,8 +31,9 @@ Response equations (party.rs in each module):
   z_m = m' + m·c;  z_r1 = r1' + r1·c;  z_r2 = r2' + (r2 − m·r1)·c.
 
 The randomised batch verifier of the square-rand proofs
-(``square_rand_proof_verify_batched`` in the JAX package) is one multi-scalar
-multiplication over all lanes and arrives together with that kernel.
+(``square_rand_proof_verify_batched``) checks one random linear combination
+of every lane's equations: one 6N-term multi-scalar multiplication (the MSM
+kernel on the card) and two fixed-base products.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops import curve, sc
+from ..ops import curve, msm, sc
 from ..ops.curve import PointArray
 from . import pedersen
 from .batch_transcript import BatchTranscript, field_byte_cols
@@ -221,6 +222,51 @@ def square_rand_proof_verify(
         (c.c.L, challenge), (c.c.R, challenge), (c.c_sq, challenge), (c.c.L, proof.z_m)])
     ok_eg = _elgamal_relation(proof.c_prime, proof.z_m, proof.z_r1, c_times_l, c_times_r)
     return ok_eg & _square_relation(proof.c_sq_prime, proof.z_r2, z_m_times_l, c_times_sq)
+
+
+def _square_rand_batch_verify_core(label: bytes, proof: SquareRandProofVec,
+                                   c: SquareRandCommitVec, rho: torch.Tensor) -> torch.Tensor:
+    """Randomised batch verification: in place of the three per-lane group
+    equations (4N ladders), one random linear combination
+
+      Σ_i ρ1ᵢ·E1ᵢ + ρ2ᵢ·E2ᵢ + ρ3ᵢ·E3ᵢ == identity
+
+    which is one 6N-term MSM and two single-lane fixed-base products. Sound
+    with error 2^-252 per weight vector (the batch-verification argument of
+    dalek's verify_multiple). The Fiat-Shamir challenge c comes from the
+    same batched transcript, so honest proofs are accepted exactly where the
+    per-lane verifier accepts them. Returns a (1,) bool tensor."""
+    challenge = _square_rand_challenges(label, c, proof.c_prime, proof.c_sq_prime)
+    n = proof.z_m.shape[1]
+    r1, r2, r3 = rho[:, :n], rho[:, n:2 * n], rho[:, 2 * n:]
+    # E1: z_m·B + z_r1·H − C' − c·C = 0         (ElGamal L row)
+    # E2: z_r1·B − C'_R − c·C_R = 0             (ElGamal R row)
+    # E3: z_m·C_L + z_r2·H − C'_sq − c·C_sq = 0 (Pedersen square row)
+    sB = sc.sum_reduce(sc.add(sc.mul(r1, proof.z_m), sc.mul(r2, proof.z_r1)))
+    sH = sc.sum_reduce(sc.add(sc.mul(r1, proof.z_r1), sc.mul(r3, proof.z_r2)))
+    kCL = sc.sub(sc.mul(r3, proof.z_m), sc.mul(r1, challenge))
+    kCR = sc.neg(sc.mul(r2, challenge))
+    kCsq = sc.neg(sc.mul(r3, challenge))
+    pts = PointArray(*[torch.cat(cs, dim=1) for cs in zip(
+        c.c.L, c.c.R, c.c_sq, proof.c_prime.L, proof.c_prime.R, proof.c_sq_prime)])
+    scal = torch.cat([kCL, kCR, kCsq, sc.neg(r1), sc.neg(r2), sc.neg(r3)], dim=1)
+    total = curve.add(msm.msm(pts, scal),
+                      curve.add(pedersen.base_B().mul(sB), pedersen.base_H().mul(sH)))
+    return curve.eq(total, curve.identity((1,), total.device))
+
+
+def square_rand_proof_verify_batched(
+    proof: SquareRandProofVec,
+    c: SquareRandCommitVec,
+    rng: np.random.Generator,
+    transcript_label: bytes = b"SquareRandProof",
+) -> bool:
+    """Verify all lanes at once (the server's fast path) → one accept /
+    reject; per-lane blame needs ``square_rand_proof_verify``. Draws the 3N
+    weights from `rng` first, on the proof's device."""
+    n = proof.z_m.shape[1]
+    rho = pedersen.rnd_scalar_tensor(3 * n, rng, proof.z_m.device)
+    return bool(_square_rand_batch_verify_core(transcript_label, proof, c, rho).all())
 
 
 # -- SquareProof (Pedersen-only) --------------------------------------------

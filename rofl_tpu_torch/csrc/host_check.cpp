@@ -139,4 +139,29 @@ void host_scalar_mul(const int32_t *k, int k_lanes, const int32_t *px, const int
   }
 }
 
+// The grid of csrc/msm.cu with `threads` threads a block, run block by
+// block and thread by thread: each thread's ge_msm_lanes, then the block's
+// halving tree (threads a power of two). Writes the partial sums, (16,
+// n_out) with n_out = (n / group) * ceil(group / (threads * per_thread)).
+void host_msm(const int32_t *k, int k_lanes, const int32_t *px, const int32_t *py,
+              const int32_t *pz, const int32_t *pt, int n, int group, int per_thread,
+              int threads, int32_t *ox, int32_t *oy, int32_t *oz, int32_t *ot) {
+  const int lanes_per_block = threads * per_thread;
+  const int blocks_per_group = (group + lanes_per_block - 1) / lanes_per_block;
+  const int n_out = (n / group) * blocks_per_group;
+  ge red[1024];
+  for (int block = 0; block < n_out; ++block) {
+    for (int tid = 0; tid < threads; ++tid) {
+      msm_lanes mine = msm_thread_lanes(block, tid, threads, group, per_thread, blocks_per_group);
+      red[tid] = ge_msm_lanes(k, k_lanes, px, py, pz, pt, n, mine.first, threads, mine.count,
+                              [](const ge &a, const ge &b) { return ge_add(a, b); },
+                              [](const ge &a) { return ge_double(a); });
+    }
+    for (int stride = threads / 2; stride > 0; stride >>= 1) {
+      for (int tid = 0; tid < stride; ++tid) red[tid] = ge_add(red[tid], red[tid + stride]);
+    }
+    store_point(ox, oy, oz, ot, n_out, block, red[0]);
+  }
+}
+
 }  // extern "C"

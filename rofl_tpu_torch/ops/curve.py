@@ -7,8 +7,9 @@ identity and doubling), so every op is branch-free and batchable.
 
 ``add``, ``double``, ``scalar_mul``, ``compress`` and ``decompress`` go through the wrappers
 in ``ops/kernels.py``: the CUDA kernel for tensors on the card, the plain
-version for tensors on the CPU. ``neg``, ``select`` and ``eq`` are plain
-tensor code on both. The JAX package's lane bucketing (padding lane counts
+version for tensors on the CPU. ``neg``, ``select``, ``eq`` and
+``elligator_map`` are plain tensor code on both; the sums are chains of
+``point_add`` launches. The JAX package's lane bucketing (padding lane counts
 to share XLA compiles) has no counterpart: nothing is compiled per shape.
 
 Bit-exact with ``rofl_tpu_torch.spec.ristretto`` (== curve25519-dalek-ng).
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from . import fe, kernels
+from ..spec import field as SF
 from ..spec import ristretto as SR
 
 
@@ -130,6 +132,52 @@ def decompress(s: torch.Tensor) -> tuple[PointArray, torch.Tensor]:
     return PointArray(*[c.reshape(s.shape) for c in pt]), valid.reshape(s.shape[1:])
 
 
+def elligator_map(t: torch.Tensor) -> PointArray:
+    """Batched RFC 9496 one-way MAP (dalek elligator_ristretto_flavor) of
+    field limbs t (16, *batch)."""
+    batch, device = t.shape[1:], t.device
+    one = fe.ones(batch, device)
+    d = fe.constant(SF.D, batch, device)
+    r = fe.mul(fe.mul(fe.constant(SF.SQRT_M1, batch, device), t), t)
+    u = fe.mul(fe.add(r, one), fe.constant(SF.ONE_MINUS_D_SQ, batch, device))
+    neg_one = fe.neg(one)
+    v = fe.mul(fe.sub(neg_one, fe.mul(r, d)), fe.add(r, d))
+    was_square, s = fe.sqrt_ratio_m1(u, v)
+    s_prime = fe.neg(fe.cabs(fe.mul(s, t)))
+    s = fe.select(was_square, s, s_prime)
+    c = fe.select(was_square, neg_one, r)
+    n = fe.sub(fe.mul(fe.mul(c, fe.sub(r, one)),
+                      fe.constant(SF.D_MINUS_ONE_SQ, batch, device)), v)
+    w0 = fe.mul(fe.mul_small(s, 2), v)
+    w1 = fe.mul(n, fe.constant(SF.SQRT_AD_MINUS_ONE, batch, device))
+    ssq = fe.sqr(s)
+    w2 = fe.sub(one, ssq)
+    w3 = fe.add(one, ssq)
+    return PointArray(fe.mul(w0, w3), fe.mul(w2, w1), fe.mul(w1, w3), fe.mul(w0, w2))
+
+
+def from_uniform_bytes(data: np.ndarray, device="cuda") -> PointArray:
+    """(N, 64) uint8 → batched RistrettoPoint::from_uniform_bytes on
+    `device`: two Elligator maps and one ``point_add``. Derives the
+    Bulletproof generators from the host's SHAKE-256 streams."""
+    data = np.asarray(data, dtype=np.uint8).reshape(-1, 64)
+    r1 = fe.to_tensor(fe.from_bytes_array(np.ascontiguousarray(data[:, :32])), device)
+    r2 = fe.to_tensor(fe.from_bytes_array(np.ascontiguousarray(data[:, 32:])), device)
+    return add(elligator_map(r1), elligator_map(r2))
+
+
+def decompress_rows(rows: np.ndarray, device="cuda") -> tuple[PointArray, torch.Tensor]:
+    """(N, 32) uint8 encodings → (points on `device`, valid (N,) bool). An
+    encoding is valid where it is canonical (s < p, s even; dalek's
+    decompress) and decodes to a point."""
+    rows = np.asarray(rows, dtype=np.uint8).reshape(-1, 32)
+    top = (rows[:, 31] & 0x80) != 0
+    at_least_p = (rows[:, 31] == 0x7F) & (rows[:, 1:31] == 0xFF).all(axis=1) & (rows[:, 0] >= 0xED)
+    canonical = ~top & ~at_least_p & ((rows[:, 0] & 1) == 0)
+    pts, valid = decompress(fe.to_tensor(fe.from_bytes_array(rows), device))
+    return pts, valid & torch.from_numpy(canonical).to(valid.device)
+
+
 def compress_to_bytes(p: PointArray) -> np.ndarray:
     """Host helper: batched encode → (N, 32) uint8."""
     return fe.to_bytes_array(compress(p))
@@ -155,3 +203,12 @@ def tree_sum(p: PointArray, axis: int = 0) -> PointArray:
         acc = add(PointArray(*[c[:, :w] for c in acc]),
                   PointArray(*[c[:, w:] for c in acc]))
     return PointArray(*[c.movedim(1, ax) for c in acc])
+
+
+def tree_sum_groups(p: PointArray, group: int) -> PointArray:
+    """Per-group point sums over contiguous groups of `group` lanes, any
+    group size: (16, G·group) → (16, G). A halving chain over the group axis
+    (identity padding to a power of two): ceil(log2(group)) launches of
+    ``point_add``."""
+    coords = tuple(c.reshape(fe.NLIMB, -1).contiguous() for c in p)
+    return PointArray(*kernels.halving_sums(coords, group, kernels.point_add))

@@ -131,15 +131,30 @@ def _four_p(like: torch.Tensor) -> torch.Tensor:
 # -- arithmetic ---------------------------------------------------------------
 
 
-def _carry_pass(limbs: list) -> tuple[list, torch.Tensor]:
-    """One full sequential carry pass; returns (carried limbs, carry-out)."""
-    out = []
-    carry = torch.zeros_like(limbs[0])
-    for k in range(NLIMB):
-        v = limbs[k] + carry
-        out.append(v & MASK16)
-        carry = v >> 16
-    return out, carry
+_LIMB_INDEX = torch.arange(NLIMB)
+
+
+def _carry_pass(t: torch.Tensor, rounds: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One full carry pass over non-negative int64 limbs (16, *batch) →
+    (carried limbs < 2^16, carry-out): the same value as a sequential ripple,
+    computed in a fixed number of whole-tensor steps.
+
+    `rounds` parallel rounds move each limb's excess one limb up; the caller
+    gives enough of them to leave every limb in [0, 0x10001]. Then the carry
+    into limb k is 1 exactly where the last limb below k that is not 0xFFFF
+    is at least 0x10000 (it generates, the 0xFFFF limbs between propagate),
+    found with a running maximum."""
+    out = torch.zeros_like(t[0])
+    for _ in range(rounds):
+        c = t >> 16
+        out = out + c[-1]
+        t = (t & MASK16) + torch.cat([torch.zeros_like(c[:1]), c[:-1]])
+    index = _LIMB_INDEX.to(t.device).reshape((NLIMB,) + (1,) * (t.dim() - 1)).expand_as(t)
+    last = torch.cummax(torch.where(t != MASK16, index, -1), dim=0).values  # last non-0xFFFF <= k
+    gen = (t > MASK16).to(torch.int64)
+    carry_in = torch.where(last >= 0, torch.gather(gen, 0, last.clamp(min=0)), 0)  # out of limb k
+    shifted = torch.cat([torch.zeros_like(carry_in[:1]), carry_in[:-1]])
+    return (t + shifted) & MASK16, out + carry_in[-1]
 
 
 def _normalize(t: torch.Tensor) -> torch.Tensor:
@@ -147,16 +162,18 @@ def _normalize(t: torch.Tensor) -> torch.Tensor:
     fully-carried int32 form < 2^256.
 
     Three passes with 2^256 ≡ 38 folds; branch-free and always sufficient:
-    after pass1 the fold adds < 2^16 to limb0, after pass2 the fold adds at
-    most 38, whose ripple pass3 absorbs.
+    after pass1 the fold adds < 2^17 to limb0, after pass2 the fold adds at
+    most 38, whose ripple pass3 absorbs. Rounds a pass: limbs < 2^27 take
+    two to reach [0, 0x10001] (≤ 0xFFFF + 2^11, then ≤ 0x10000), the folded
+    limb0 of passes 2 and 3 one.
     """
-    limbs = list(t.unbind(0))
-    limbs, carry = _carry_pass(limbs)
-    limbs[0] = limbs[0] + carry * 38
-    limbs, carry = _carry_pass(limbs)
-    limbs[0] = limbs[0] + carry * 38
-    limbs, _ = _carry_pass(limbs)
-    return torch.stack(limbs).to(DTYPE)
+    t = t.to(torch.int64)
+    t, carry = _carry_pass(t, 2)
+    t[0] += carry * 38
+    t, carry = _carry_pass(t, 1)
+    t[0] += carry * 38
+    t, _ = _carry_pass(t, 1)
+    return t.to(DTYPE)
 
 
 def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -178,6 +195,10 @@ def mul_small(a: torch.Tensor, c: int) -> torch.Tensor:
     return _normalize(a * c)
 
 
+_COL_LO = (torch.arange(NLIMB).unsqueeze(1) + torch.arange(NLIMB).unsqueeze(0)).reshape(-1)
+_COL_HI = _COL_LO + 1
+
+
 def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Schoolbook 16x16-limb product with carry-save column accumulation.
 
@@ -185,16 +206,13 @@ def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     the folded columns (< 2^27) are carried and narrowed to int32.
     """
     a, b = torch.broadcast_tensors(a, b)
-    a = a.to(torch.int64)
-    b = b.to(torch.int64)
     batch = a.shape[1:]
-    lo = torch.zeros((2 * NLIMB,) + batch, dtype=torch.int64, device=a.device)
-    hi = torch.zeros_like(lo)
-    for i in range(NLIMB):
-        p = a[i].unsqueeze(0) * b  # row i of partial products, shifted by i limbs
-        lo[i:i + NLIMB] += p & MASK16
-        hi[i + 1:i + 1 + NLIMB] += p >> 16  # high halves are worth one column more
-    cols = lo + hi  # 32 radix-2^16 columns
+    # all 256 partial products a_i*b_j at once, row i*16 + j
+    p = (a.to(torch.int64).unsqueeze(1) * b.to(torch.int64).unsqueeze(0)).reshape(
+        (NLIMB * NLIMB,) + batch)
+    cols = torch.zeros((2 * NLIMB,) + batch, dtype=torch.int64, device=a.device)
+    cols.index_add_(0, _COL_LO.to(a.device), p & MASK16)
+    cols.index_add_(0, _COL_HI.to(a.device), p >> 16)  # high halves are worth one column more
     # Fold columns 16..31 with 2^256 ≡ 38.
     return _normalize(cols[:NLIMB] + 38 * cols[NLIMB:])
 

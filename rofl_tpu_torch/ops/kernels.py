@@ -1,7 +1,9 @@
 """The hand-written Hopper kernels for the curve and scalar hot paths, their
 build, their wrappers, and the plain torch version of each.
 
-Counterpart of ``rofl_tpu/ops/kernels.py``. Nine of its TPU kernels are here:
+Counterpart of ``rofl_tpu/ops/kernels.py``. Eleven of its TPU kernel
+wrappers are here (``msm_flat`` launches the ``msm_groups`` kernel with one
+group, counted apart):
 
   point_add     csrc/point_add.cu     (TPU: _add_kernel / point_add)
   point_double  csrc/point_double.cu  (TPU: _double_kernel / point_double)
@@ -12,8 +14,11 @@ Counterpart of ``rofl_tpu/ops/kernels.py``. Nine of its TPU kernels are here:
   sc_add        csrc/sc_add.cu        (TPU: _sc_add_kernel / sc_add)
   sc_sub        csrc/sc_sub.cu        (TPU: _sc_sub_kernel / sc_sub)
   scalar_mul    csrc/scalar_mul.cu    (TPU: _scalar_mul_kernel / scalar_mul, W=1)
+  msm_flat, msm_groups  csrc/msm.cu   (TPU: _msm_bitplane_kernel /
+                _make_msm_window_kernel / msm_flat, msm_groups)
 
-Each is CUDA C++ for sm_90a, one lane per thread, sharing the field, point and
+Each is CUDA C++ for sm_90a, one lane per thread (the MSM: a few lanes a
+thread and a sum a block), sharing the field, point and
 scalar device headers ``csrc/fe25519.cuh``, ``csrc/ge25519.cuh`` and
 ``csrc/sc25519.cuh``. The sources have
 a plain C interface and are compiled by ``nvcc`` at first use, one process per
@@ -60,6 +65,8 @@ KERNEL_SOURCES = {
     "sc_add": "sc_add.cu",
     "sc_sub": "sc_sub.cu",
     "scalar_mul": "scalar_mul.cu",
+    "msm_flat": "msm.cu",
+    "msm_groups": "msm.cu",
 }
 _HEADERS = ("fe25519.cuh", "ge25519.cuh", "sc25519.cuh")
 
@@ -78,7 +85,11 @@ _ARGTYPES = {
     "sc_add": [_P, _I, _P, _I, _P, _I, _P],
     "sc_sub": [_P, _I, _P, _I, _P, _I, _P],
     "scalar_mul": [_P, _I] + [_P] * 8 + [_I, _P],
+    "msm_groups": [_P, _I] + [_P] * 4 + [_I] * 3 + [_P] * 4 + [_P],
 }
+# The C function of a wrapper, where it is not rofl_<wrapper>: msm_flat is
+# msm_groups with one group.
+_ENTRY_POINTS = {"msm_flat": "msm_groups"}
 _functions: dict = {}
 # What nvcc printed for each kernel this process compiled (ptxas -v: registers,
 # shared memory, spills); empty for a library that was already built.
@@ -97,23 +108,23 @@ def nvcc_path() -> str:
     return os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
 
 
-def _library_path(name: str) -> Path:
-    """Built library for a kernel, named by a hash of what it is built from."""
+def _library_path(src: str) -> Path:
+    """Built library of a source, named by a hash of what it is built from."""
     h = hashlib.sha256()
-    for fname in (KERNEL_SOURCES[name],) + _HEADERS:
+    for fname in (src,) + _HEADERS:
         h.update((CSRC_DIR / fname).read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{Path(src).stem}-{h.hexdigest()[:16]}.so"
 
 
 def build_kernels() -> dict:
     """Compile (where not built yet) and load all the kernels; returns the C
-    functions by kernel name. All compilers run at the same time."""
-    if len(_functions) == len(KERNEL_SOURCES):
+    functions by kernel name. One compiler a source, all at the same time."""
+    if len(_functions) == len(_ARGTYPES):
         return _functions
     os.makedirs(BUILD_DIR, exist_ok=True)
     running = {}
-    for name, src in KERNEL_SOURCES.items():
-        out = _library_path(name)
+    for src in dict.fromkeys(KERNEL_SOURCES.values()):
+        out = _library_path(src)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -122,20 +133,20 @@ def build_kernels() -> dict:
             "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
             str(CSRC_DIR / src),
         ]
-        running[name] = (subprocess.Popen(
+        running[src] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out)
     failed = []
-    for name, (proc, tmp, out) in running.items():
+    for src, (proc, tmp, out) in running.items():
         log = proc.communicate()[0]
         if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited with {proc.returncode}\n{log}")
+            failed.append(f"{src}: nvcc exited with {proc.returncode}\n{log}")
         else:
             os.replace(tmp, out)
-            BUILD_LOGS[name] = log
+            BUILD_LOGS.update({name: log for name, s in KERNEL_SOURCES.items() if s == src})
     if failed:
         raise RuntimeError("kernel build failed\n" + "\n".join(failed))
-    for name in KERNEL_SOURCES:
-        fn = getattr(ctypes.CDLL(str(_library_path(name))), f"rofl_{name}")
+    for name in _ARGTYPES:
+        fn = getattr(ctypes.CDLL(str(_library_path(KERNEL_SOURCES[name]))), f"rofl_{name}")
         fn.argtypes = _ARGTYPES[name]
         fn.restype = _I
         _functions[name] = fn
@@ -143,7 +154,7 @@ def build_kernels() -> dict:
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
-    fn = build_kernels()[name]
+    fn = build_kernels()[_ENTRY_POINTS.get(name, name)]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*args, stream)
@@ -473,3 +484,92 @@ def scalar_mul(k, p):
     _launch("scalar_mul", device, k.data_ptr(), k.shape[1],
             *[c.data_ptr() for c in p], *[c.data_ptr() for c in out], n)
     return tuple(out)
+
+
+# =============================================================================
+# msm_flat, msm_groups
+# =============================================================================
+
+MSM_THREADS = 64  # csrc/msm.cu THREADS
+MSM_BLOCKS_PER_SM = 4  # about 250 registers a thread: 4 blocks of 64 threads fill an SM
+MSM_MAX_PER_THREAD = 8
+
+
+def halving_sums(p, group: int, add):
+    """Per-group sums over contiguous groups of `group` lanes, (16, G·group)
+    → (16, G): the groups padded to a power of two with the identity, then
+    the upper half added onto the lower by `add` until one lane is left."""
+    n_groups = p[0].shape[1] // group
+    width = 1 << (group - 1).bit_length()
+    coords = [c.reshape(NLIMB, n_groups, group) for c in p]
+    if width != group:
+        pad, device = (n_groups, width - group), coords[0].device
+        ident = (fe.zeros(pad, device), fe.ones(pad, device), fe.ones(pad, device),
+                 fe.zeros(pad, device))
+        coords = [torch.cat([c, i], dim=2) for c, i in zip(coords, ident)]
+    while width > 1:
+        width //= 2
+        lo = tuple(c[:, :, :width].reshape(NLIMB, -1).contiguous() for c in coords)
+        hi = tuple(c[:, :, width:].reshape(NLIMB, -1).contiguous() for c in coords)
+        coords = [c.reshape(NLIMB, n_groups, width) for c in add(lo, hi)]
+    return tuple(c.reshape(NLIMB, n_groups).contiguous() for c in coords)
+
+
+MSM_REF_SLICE = 1 << 18
+
+
+def msm_groups_ref(k, p, group: int):
+    """Σ k_i · P_i per contiguous group of `group` lanes: ``scalar_mul_ref``
+    per lane, in slices of at most MSM_REF_SLICE lanes (which bounds the
+    plain field products' memory), then the halving sums per group."""
+    n = p[0].shape[1]
+    parts = [scalar_mul_ref(k if k.shape[1] == 1 else k[:, lo:lo + MSM_REF_SLICE],
+                            tuple(c[:, lo:lo + MSM_REF_SLICE] for c in p))
+             for lo in range(0, n, MSM_REF_SLICE)]
+    terms = tuple(torch.cat(cs, dim=1) for cs in zip(*parts))
+    return halving_sums(terms, group, point_add_ref)
+
+
+def msm_flat_ref(k, p):
+    return msm_groups_ref(k, p, p[0].shape[1])
+
+
+def _msm(wrapper: str, k, p, group: int):
+    device = p[0].device
+    n = p[0].shape[-1]
+    _check_coords(f"{wrapper} p", p, device, (n,))
+    _check_coords(f"{wrapper} k", (k,), device, (n, 1))
+    if group < 1 or n % group:
+        raise ValueError(f"{wrapper}: group {group} does not divide {n} lanes")
+    # As many lanes a thread as keeps one wave of blocks on the card.
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    per_thread = max(1, min(MSM_MAX_PER_THREAD, n // (MSM_THREADS * MSM_BLOCKS_PER_SM * sms)))
+    per_group = -(-group // (MSM_THREADS * per_thread))
+    out = _empty_coords(4, n // group * per_group, device)
+    _launch(wrapper, device, k.data_ptr(), k.shape[1], *[c.data_ptr() for c in p], n, group,
+            per_thread, *[c.data_ptr() for c in out])
+    if per_group == 1:
+        return tuple(out)
+    return halving_sums(out, per_group, point_add)
+
+
+def msm_groups(k, p, group: int):
+    """Per-group multi-scalar multiplication: scalars k (16, N) or one
+    broadcast lane (16, 1), points p as an (x, y, z, t) tuple of (16, N)
+    int32 limbs, `group` dividing N → the G = N / group sums
+    Σ k_i · P_i of the contiguous groups, a tuple of (16, G). One launch of
+    the MSM kernel (one partial sum a block of the card), then the
+    ``point_add`` chain over a group's partials where it has more than one.
+    Any group size. Equal to the plain version as group elements, not as
+    coordinates (compare encodings or with ``curve.eq``)."""
+    if not use_kernels(p[0]):
+        return msm_groups_ref(k, p, group)
+    return _msm("msm_groups", k, p, group)
+
+
+def msm_flat(k, p):
+    """Σ k_i · P_i over all N lanes → a tuple of (16, 1): ``msm_groups``
+    with one group, counted apart."""
+    if not use_kernels(p[0]):
+        return msm_flat_ref(k, p)
+    return _msm("msm_flat", k, p, p[0].shape[-1])

@@ -4,15 +4,21 @@ Reimplements the `merlin 3` crate's Strobe128 + Transcript so that
 Fiat-Shamir challenges match the reference's proofs byte-for-byte
 (rofl_crypto uses merlin everywhere: rand_proof/transcript.rs:19-45,
 range_proof_vec/mod.rs:124, bulletproofs internally). The port's own copy of
-``rofl_tpu.spec.merlin``, pure Python only: it is the oracle that
-``crypto/batch_transcript.py`` is held against, not a hot path.
+``rofl_tpu.spec.merlin``. It is the oracle that ``crypto/batch_transcript.py``
+is held against, and the per-proof transcript of the range proofs, where the
+verifier absorbs 2^16 commitments at d = 50000: the sponge's byte loops and
+its permutation run in the native helper (``utils/native.py``,
+``csrc/keccak.c``). The pure-Python loops below (``absorb_py``,
+``overwrite_py``, ``squeeze_py`` on ``spec/keccak.py``) are what the tests
+hold the helper against.
 
 STROBE operations used by Merlin: meta-AD, AD, PRF, KEY.
 """
 
 from __future__ import annotations
 
-from .keccak import keccak_f1600
+from ..utils import native
+from .keccak import keccak_f1600 as keccak_f1600_py
 
 STROBE_R = 166  # sponge rate for security level 128: 200 - 32 - 2
 
@@ -24,14 +30,55 @@ FLAG_M = 1 << 4
 FLAG_K = 1 << 5
 
 
+def _run_f_py(state: bytearray, pos: int, pos_begin: int) -> None:
+    state[pos] ^= pos_begin
+    state[pos + 1] ^= 0x04
+    state[STROBE_R + 1] ^= 0x80
+    keccak_f1600_py(state)
+
+
+def absorb_py(state: bytearray, pos: int, pos_begin: int, data: bytes) -> tuple[int, int]:
+    """The STROBE absorb loop in pure Python → (pos, pos_begin)."""
+    for byte in data:
+        state[pos] ^= byte
+        pos += 1
+        if pos == STROBE_R:
+            _run_f_py(state, pos, pos_begin)
+            pos, pos_begin = 0, 0
+    return pos, pos_begin
+
+
+def overwrite_py(state: bytearray, pos: int, pos_begin: int, data: bytes) -> tuple[int, int]:
+    for byte in data:
+        state[pos] = byte
+        pos += 1
+        if pos == STROBE_R:
+            _run_f_py(state, pos, pos_begin)
+            pos, pos_begin = 0, 0
+    return pos, pos_begin
+
+
+def squeeze_py(state: bytearray, pos: int, pos_begin: int, n: int) -> tuple[bytes, int, int]:
+    out = bytearray(n)
+    for i in range(n):
+        out[i] = state[pos]
+        state[pos] = 0
+        pos += 1
+        if pos == STROBE_R:
+            _run_f_py(state, pos, pos_begin)
+            pos, pos_begin = 0, 0
+    return bytes(out), pos, pos_begin
+
+
 class Strobe128:
-    """STROBE-128/1600, the subset merlin's strobe.rs implements."""
+    """STROBE-128/1600, the subset merlin's strobe.rs implements; the sponge
+    runs in the native helper."""
 
     def __init__(self, protocol_label: bytes):
         st = bytearray(200)
         st[0:6] = bytes([1, STROBE_R + 2, 1, 0, 1, 96])
         st[6:18] = b"STROBEv1.0.2"
-        keccak_f1600(st)
+        native.keccak_f1600(st)
         self.state = st
         self.pos = 0
         self.pos_begin = 0
@@ -44,33 +91,22 @@ class Strobe128:
         self.state[self.pos] ^= self.pos_begin
         self.state[self.pos + 1] ^= 0x04
         self.state[STROBE_R + 1] ^= 0x80
-        keccak_f1600(self.state)
+        native.keccak_f1600(self.state)
         self.pos = 0
         self.pos_begin = 0
 
     def _absorb(self, data: bytes) -> None:
-        for byte in data:
-            self.state[self.pos] ^= byte
-            self.pos += 1
-            if self.pos == STROBE_R:
-                self._run_f()
+        self.pos, self.pos_begin = native.strobe_absorb(
+            self.state, self.pos, self.pos_begin, data, STROBE_R)
 
     def _overwrite(self, data: bytes) -> None:
-        for byte in data:
-            self.state[self.pos] = byte
-            self.pos += 1
-            if self.pos == STROBE_R:
-                self._run_f()
+        self.pos, self.pos_begin = native.strobe_overwrite(
+            self.state, self.pos, self.pos_begin, data, STROBE_R)
 
     def _squeeze(self, n: int) -> bytes:
-        out = bytearray(n)
-        for i in range(n):
-            out[i] = self.state[self.pos]
-            self.state[self.pos] = 0
-            self.pos += 1
-            if self.pos == STROBE_R:
-                self._run_f()
-        return bytes(out)
+        out, self.pos, self.pos_begin = native.strobe_squeeze(
+            self.state, self.pos, self.pos_begin, n, STROBE_R)
+        return out
 
     def _begin_op(self, flags: int, more: bool) -> None:
         if more:
@@ -132,6 +168,21 @@ class Transcript:
 
     def append_u64(self, label: bytes, value: int) -> None:
         self.append_message(label, int(value).to_bytes(8, "little"))
+
+    def append_messages(self, label: bytes, msgs) -> None:
+        """``append_message(label, m)`` for each of `msgs`, which all have
+        one length, in one native call (the range-proof transcripts absorb
+        their 2^16 commitments at d = 50000 so). Bit-identical to the loop."""
+        if not msgs:
+            return
+        msg_len = len(msgs[0])
+        blob = b"".join(msgs)
+        if len(blob) != msg_len * len(msgs):
+            raise ValueError("append_messages: the messages differ in length")
+        s = self.strobe
+        s.pos, s.pos_begin = native.merlin_absorb_msgs(
+            s.state, s.pos, s.pos_begin, label, blob, msg_len, len(msgs), STROBE_R)
+        s.cur_flags = FLAG_A
 
     def challenge_bytes(self, label: bytes, n: int) -> bytes:
         self.strobe.meta_ad(label, False)

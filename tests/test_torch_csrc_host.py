@@ -250,3 +250,39 @@ def test_scalar_mul_ladder_on_host(lib):
         got = curve.PointArray(*[torch.from_numpy(o) for o in out])
         assert [bytes(r) for r in curve.compress_to_bytes(got)] == [
             q.scalar_mul(k % L).compress() for q, k in zip(p, k_list)]
+
+
+@pytest.mark.parametrize("group,per_thread,k_lanes", [
+    (2, 2, None), (5, 1, None), (13, 2, None), (26, 8, None), (26, 2, 1)])
+def test_msm_grid_on_host(lib, group, per_thread, k_lanes):
+    """The grid of csrc/msm.cu (msm_thread_lanes, ge_msm_lanes, the block's
+    halving tree) at 4 threads a block, against the spec: the partial sums of
+    each group add up to that group's sum of k_i * P_i. Groups shorter than a
+    block, one block, several blocks with a short last run; k = 0, 1, l-1 and
+    the identity among the terms; k as one broadcast lane."""
+    from rofl_tpu_torch.spec import scalar as SS
+
+    L = SS.L
+    p, q = points()
+    pts = (p + q)[:26]
+    n = len(pts)
+    ks = [0, 1, L - 1] + [int.from_bytes(rng.bytes(32), "little") % L for _ in range(n - 3)]
+    pa = coords_i32(curve.pack_points(pts, "cpu"))
+    k_np = limbs_i32(ks)
+    if k_lanes == 1:
+        k_np, ks = np.ascontiguousarray(k_np[:, 7:8]), [ks[7]] * n
+    threads = 4
+    per_group = -(-group // (threads * per_thread))
+    n_out = n // group * per_group
+    out = [np.zeros((16, n_out), np.int32) for _ in range(4)]
+    lib.host_msm(ptr(k_np), k_lanes or n, *map(ptr, pa), n, group, per_thread, threads,
+                 *map(ptr, out))
+    partials = curve.unpack_points(curve.PointArray(*[torch.from_numpy(o) for o in out]))
+    for g in range(n // group):
+        got = SR.identity()
+        for part in partials[g * per_group:(g + 1) * per_group]:
+            got = got + part
+        want = SR.identity()
+        for i in range(g * group, (g + 1) * group):
+            want = want + pts[i].scalar_mul(ks[i])
+        assert got.compress() == want.compress()

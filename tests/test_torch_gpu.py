@@ -75,7 +75,8 @@ def test_kernels_equal_their_plain_versions(card, n):
     torch.cuda.synchronize()
     assert {k: kernels.LAUNCHES[k] - before[k] for k in before} == {
         "point_add": 2, "point_double": 1, "compress": 1, "decompress": 1,
-        "sc_reduce_wide": 2, "sc_mul": 2, "sc_add": 2, "sc_sub": 2, "scalar_mul": 0}
+        "sc_reduce_wide": 2, "sc_mul": 2, "sc_add": 2, "sc_sub": 2, "scalar_mul": 0,
+        "msm_flat": 0, "msm_groups": 0}
 
 
 @pytest.mark.parametrize("n", [1, 6, 77])
@@ -138,3 +139,56 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         kernels.scalar_mul(a, tuple(c[:, :1].contiguous() for c in p))  # P does not broadcast
     with pytest.raises(ValueError):
         kernels.scalar_mul(a.cpu(), p)
+
+
+@pytest.mark.parametrize("n,group", [(1, 1), (77, 77), (32, 2), (130, 65)])
+def test_msm_kernel_equals_its_plain_version_and_the_spec(card, n, group):
+    """msm_groups (and msm_flat where there is one group) against the plain
+    version and the spec, as canonical encodings: zero scalars, l-1, the
+    identity among the points, and one broadcast scalar."""
+    rng = np.random.default_rng(n)
+    pool = [SR.hash_from_bytes_sha512(rng.bytes(16)) for _ in range(3)]
+    pool += [SR.identity(), SR.BASEPOINT]
+    pts = [pool[i % len(pool)] for i in range(n)]
+    ks = [[0, 1, SS.L - 1][i % 3] if i < 6 else int.from_bytes(rng.bytes(32), "little") % SS.L
+          for i in range(n)]
+    p = tuple(curve.pack_points(pts, card))
+    k = fe.to_tensor(sc.pack_scalars(ks), card)
+    before = dict(kernels.LAUNCHES)
+    got = kernels.msm_groups(k, p, group)
+    one = kernels.msm_groups(k[:, -1:].contiguous(), p, group)
+    flat = kernels.msm_flat(k, p)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["msm_groups"] - before["msm_groups"] == 2
+    assert kernels.LAUNCHES["msm_flat"] - before["msm_flat"] == 1
+    assert torch.equal(kernels.compress(got), kernels.compress(kernels.msm_groups_ref(k, p, group)))
+
+    def spec_sums(scalars, size):
+        sums = []
+        for g in range(0, n, size):
+            acc = SR.identity()
+            for q, v in zip(pts[g:g + size], scalars[g:g + size]):
+                acc = acc + q.scalar_mul(v)
+            sums.append(acc.compress())
+        return sums
+
+    encode = lambda out: [bytes(r) for r in curve.compress_to_bytes(curve.PointArray(*out))]
+    assert encode(got) == spec_sums(ks, group)
+    assert encode(one) == spec_sums([ks[-1]] * n, group)
+    assert encode(flat) == spec_sums(ks, n)
+
+
+def test_msm_wrappers_refuse_what_the_kernel_does_not_take(card):
+    p, _ = operands(8, card, seed=4)
+    a = torch.zeros((16, 8), dtype=torch.int32, device=card)
+    for call in (lambda k, q: kernels.msm_flat(k, q), lambda k, q: kernels.msm_groups(k, q, 4)):
+        with pytest.raises(ValueError):
+            call(a[:, :3].contiguous(), p)  # neither n nor 1 scalars
+        with pytest.raises(ValueError):
+            call(a.to(torch.int64), p)
+        with pytest.raises(ValueError):
+            call(a, tuple(c[:, ::2] for c in operands(16, card, seed=5)[0]))  # not contiguous
+        with pytest.raises(ValueError):
+            call(a.cpu(), p)
+    with pytest.raises(ValueError):
+        kernels.msm_groups(a, p, 3)  # 3 does not divide 8
