@@ -1,7 +1,8 @@
 """Drive the PyTorch/CUDA port once on the card: build the kernels, hold each
 against its plain version, run the secure-aggregation round, the Σ-protocol
-path (prove → wire → per-lane verify) and the L2-norm client round
-(encrypt → wire → verify) at full width.
+path (prove → wire → per-lane verify), the L2-norm client round
+(encrypt → wire → verify) and the server's round in the other encrypted
+modes (encrypt → wire → verify → accumulate → extract) at full width.
 
     python3 chip_smoke.py
 
@@ -12,16 +13,21 @@ line is ``{"ok": true, "device": {...}}``.
 
 Phases:
   device   the card's name and power limit, torch and CUDA versions
-  build    nvcc builds the kernels of the eleven wrappers from the ten sources in
-           rofl_tpu_torch/csrc (in parallel) and reports ptxas' registers and
-           spill bytes for each
+  build    nvcc builds the kernels of the thirteen wrappers from the twelve
+           sources in rofl_tpu_torch/csrc (in parallel) and reports ptxas'
+           registers, spill bytes and shared memory for each entry point
   kernels  point_add, point_double, compress, decompress, sc_reduce_wide,
-           sc_mul, sc_add, sc_sub, scalar_mul, msm_flat, msm_groups against
-           their plain torch versions on the card, at the lane counts the
-           paths use and at N = 1 and 77, random and edge inputs, canonical
-           limbs bit-equal (scalar_mul, the MSMs: canonical encodings of the
-           results); times at N = 50000; the MSMs also held equal and timed,
-           with their plain versions, at the l2 path's shapes
+           sc_mul, sc_add, sc_sub, scalar_mul, msm_flat, msm_groups,
+           shared_scalar_mul, scalar_mul_window against their plain torch
+           versions on the card, at the lane counts the paths use and at
+           N = 1 and 77, random and edge inputs, canonical limbs bit-equal
+           (the ladders, the MSMs: canonical encodings of the results);
+           times at N = 50000; the MSMs also held equal and timed, with
+           their plain versions, at the l2 path's shapes; shared_scalar_mul
+           at N = 50000 for k = 0, 1, l-1 and scalars of low, high and
+           random Hamming weight, each timed; scalar_mul_window at W = 2 and
+           4; the point_add and sc_add chains of tree_sum and sc.sum_reduce
+           timed at 50000 lanes
   round    d = 50000, 4 clients, FpConfig(16, 7), through ``bindings``:
            cancelling blindings (keyed Keccak XOF on the card, reduced mod l
            by sc_reduce_wide) -> commit -> add_commitments -> extract_values
@@ -45,8 +51,23 @@ Phases:
            values out of the L2 bound raise, the JAX package's committed
            known-answer round (tests/data/torch_port_l2_kat.json) verifies on
            the card and a small round made on the card verifies on the CPU.
-Launch counts are set to zero just before each path (for l2: its timed run)
-and read just after it.
+  modes    d = 50000, FpConfig(16, 7), value range 8, 16 partitions, L2
+           range 16, check_percentage 1.0: for each of EncRange,
+           EncRangeCompressed and EncL2Compressed, 3 clients with cancelling
+           blindings and nonzero values inside the proven range (and, for
+           EncL2Compressed, inside the L2 bound) run encrypt -> serialize ->
+           deserialize -> verify -> Accumulator.accumulate, then one extract,
+           held equal to numpy's fixed-point sum (plus the one unit the
+           accumulator's (B, B) start adds, as in the JAX package);
+           <mode>_prove_verify_s_d50000 for the last client; a flipped rand
+           proof or compressed proof is refused, an accumulator of two of
+           the three clients extracts None, and one EncRange client at
+           check_percentage 0.5 verifies after its wire round trip.
+Launch counts are set to zero just before each path (for l2: its timed run;
+for modes: each mode's three clients and the extract) and read just after
+it. shared_scalar_mul and scalar_mul_window are on no path of either
+package's defaults (the JAX package never calls the first and runs the
+second only under ROFL_SMUL_W > 1): their launches are 0 on every path.
 """
 
 from __future__ import annotations
@@ -66,6 +87,7 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
 
 from rofl_tpu_torch import bindings  # noqa: E402
+from rofl_tpu_torch.crypto import compressed_rand_proof as CRP  # noqa: E402
 from rofl_tpu_torch.crypto import l2_range_proof as L2RP  # noqa: E402
 from rofl_tpu_torch.crypto import pedersen, sigma  # noqa: E402
 from rofl_tpu_torch.crypto import range_proof as RP  # noqa: E402
@@ -117,6 +139,11 @@ INT32_OPS_PER_S = 67e12 / 2
 # function, a fixed 4-bit window: 252 doublings, 64 adds and 14 adds for the
 # table of 16 multiples, 291 456 multiply-adds; the ladder as written does 256
 # doublings and 256 adds (499 712 at the same 128 / 72 a product / squaring).
+# scalar_mul_window computes the same function and has the same bound.
+# shared_scalar_mul's least work depends on its one scalar, which is known: its
+# bound is computed per call (shared_bound_ms) from the cheapest fixed-window or
+# NAF schedule for the scalar timed, not from the kernel's own 256 doublings and
+# one add a set bit; k = 0 and k = 1 are bound by their bytes.
 # Bytes per lane: (16, N) int32 arrays read and written once, the validity
 # byte of decompress, the 64 int32 byte columns of sc_reduce_wide.
 MUL, SQR = 128, 72
@@ -159,6 +186,13 @@ KERNEL_FACTS = {
     "msm_groups": dict(
         source="rofl_tpu_torch/csrc/msm.cu", replaces="rofl_tpu/ops/kernels.py:763",
         madds=None, bytes=LIMBS * 4 + 64),
+    "shared_scalar_mul": dict(
+        source="rofl_tpu_torch/csrc/shared_scalar_mul.cu",
+        replaces="rofl_tpu/ops/kernels.py:897", madds=None, bytes=8 * LIMBS),
+    "scalar_mul_window": dict(
+        source="rofl_tpu_torch/csrc/scalar_mul_window.cu",
+        replaces="rofl_tpu/ops/kernels.py:493",
+        madds=252 * POINT_DOUBLE_MADDS + (64 + 14) * POINT_ADD_MADDS, bytes=9 * LIMBS),
 }
 NEW_KERNELS = ("sc_mul", "sc_add", "sc_sub", "scalar_mul")
 # Lane counts the round gives the kernels (fixed-base tables: 1 and 8192;
@@ -216,6 +250,49 @@ def msm_bound_ms(n: int, group: int) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def least_shared_madds(k: int) -> int:
+    """Multiply-adds of the cheapest common schedule for k * P with k known:
+    the fewer of a fixed c-bit window (table of 2^c multiples: 2^(c-1) - 1
+    doublings and as many adds; c doublings a window; an add a nonzero digit
+    below the top one) and a width-w NAF (odd multiples up to 2^(w-1) - 1:
+    one doubling and 2^(w-2) - 1 adds; a doubling a digit; an add a nonzero
+    digit below the top one; negation is free), for the k given. k = 0 and
+    k = 1 need no arithmetic."""
+    if k < 2:
+        return 0
+    costs = []
+    for c in range(1, 9):
+        digits = [(k >> s) & ((1 << c) - 1) for s in range(0, k.bit_length(), c)]
+        table = (1 << (c - 1)) - 1
+        doubles = table + c * (len(digits) - 1)
+        adds = table + sum(1 for x in digits if x) - 1
+        costs.append(doubles * POINT_DOUBLE_MADDS + adds * POINT_ADD_MADDS)
+    for w in range(2, 9):
+        naf, x = [], k
+        while x:
+            digit = 0
+            if x & 1:
+                digit = x & ((1 << w) - 1)
+                digit -= (1 << w) if digit >= 1 << (w - 1) else 0
+                x -= digit
+            naf.append(digit)
+            x >>= 1
+        table = (1 << (w - 2)) - 1
+        doubles = (1 if table else 0) + len(naf) - 1
+        adds = table + sum(1 for x in naf if x) - 1
+        costs.append(doubles * POINT_DOUBLE_MADDS + adds * POINT_ADD_MADDS)
+    return min(costs)
+
+
+def shared_bound_ms(n: int, k: int) -> tuple[float, str]:
+    """Least time for k * P_i on n lanes with one known k: the cheapest
+    schedule's multiply-adds a lane (least_shared_madds) over the int32 rate,
+    or the bytes, whichever is larger."""
+    t_bytes = n * KERNEL_FACTS["shared_scalar_mul"]["bytes"] / HBM_BYTES_PER_S
+    t_ops = n * least_shared_madds(k) * 2 / INT32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def bound_ms(name: str, n: int) -> tuple[float, str]:
     """Least time the card could take for n lanes: every input read once and
     every output written once over the memory rate, or the multiply-adds over
@@ -250,13 +327,19 @@ def phase_build() -> None:
     version = next(ln.strip() for ln in version.splitlines() if "release" in ln)
     ptxas = {}
     for name, log in kernels.BUILD_LOGS.items():
-        used = re.search(r"Used (\d+) registers", log)
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)
-        smem = re.search(r"(\d+) bytes smem", log)
-        ptxas[name] = {"registers": int(used.group(1)),
-                       "spill_store_bytes": int(spill.group(1)),
-                       "spill_load_bytes": int(spill.group(2)),
-                       "shared_bytes": int(smem.group(1)) if smem else 0}
+        entries = []
+        # one chunk per kernel entry point, a list for every source
+        # (scalar_mul_window.cu has one entry for W = 2 and one for W = 4)
+        for chunk in log.split("Compiling entry function")[1:]:
+            entry = re.search(r"'(\S+)'", chunk)
+            used = re.search(r"Used (\d+) registers", chunk)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
+            smem = re.search(r"(\d+) bytes smem", chunk)
+            entries.append({"entry": entry.group(1), "registers": int(used.group(1)),
+                            "spill_store_bytes": int(spill.group(1)),
+                            "spill_load_bytes": int(spill.group(2)),
+                            "shared_bytes": int(smem.group(1)) if smem else 0})
+        ptxas[name] = entries
     emit({"phase": "build", "seconds": seconds, "nvcc": version, "ptxas": ptxas})
 
 
@@ -423,10 +506,12 @@ def phase_kernels() -> dict:
             records["scalar_mul"]["ms_at_4n"] = device_ms(
                 lambda: kernels.scalar_mul(k, p), reps=2, rounds=3)
     check_msm(records, hold, rng)
+    check_shared_and_window(records, hold, rng)
+    chains = time_chains(rng)
     torch.cuda.synchronize()
     bad = [name for name, r in records.items() if not r["match"]]
     emit({"phase": "kernels", "tolerance": "canonical limbs and masks bit-equal (0)",
-          "kernels": list(records.values())})
+          "kernels": list(records.values()), "chains": chains})
     if bad:
         sys.exit(f"kernels disagree with their plain versions: {bad}")
     return records
@@ -501,6 +586,103 @@ def check_msm(records: dict, hold, rng: np.random.Generator) -> None:
             rec["bound_ms_at_131618"] = msm_bound_ms(MSM_VERIFY_TERMS, MSM_VERIFY_TERMS)[0]
         del k, p, got, want
         torch.cuda.empty_cache()
+
+
+# shared_scalar_mul: one scalar for all N = 50000 lanes of test_points (the
+# identity and the basepoint among them); each scalar below is held equal to
+# the plain version and timed, the kernel's time following the Hamming weight.
+# The scalar goes to the wrapper as a tensor on the card for the check and as
+# host limbs for the timing (the wrapper copies it to the host either way; a
+# copy from the card would stall the queued launches).
+SHARED_SCALARS = {"random": None, "zero": 0, "one": 1, "l_minus_1": SS.L - 1,
+                  "low_weight": (1 << 200) | 5, "high_weight": 2**253 - 1}
+WINDOW_BROADCAST_LANES = 77
+
+
+def check_shared_and_window(records: dict, hold, rng: np.random.Generator) -> None:
+    def encodings(out):
+        return (kernels.compress(tuple(out)),)
+
+    rec = records["shared_scalar_mul"]
+    rec["checked_lanes"], rec["scalars"] = [D], []
+    p, _ = test_points(D, rng)
+    for name, k in SHARED_SCALARS.items():
+        if k is None:
+            k = int.from_bytes(rng.bytes(32), "little") % SS.L
+        limbs = fe.to_tensor(sc.pack_scalars([k]), DEVICE)
+        got = kernels.shared_scalar_mul(limbs, p)
+        want, plain_seconds = synced(lambda: kernels.shared_scalar_mul_ref(limbs, p))
+        hold("shared_scalar_mul", encodings(got), encodings(want))
+        host_limbs = sc.pack_scalars([k])
+        ms = device_ms(lambda: kernels.shared_scalar_mul(host_limbs, p), reps=3, rounds=3)
+        bound, by = shared_bound_ms(D, k)
+        rec["scalars"].append({"name": name, "hamming_weight": bin(k).count("1"), "ms": ms,
+                               "plain_ms": 1e3 * plain_seconds, "bound_ms": bound,
+                               "bound_by": by})
+        if name == "random":
+            rec.update(n=D, ms=ms, plain_ms=1e3 * plain_seconds, bound_ms=bound, bound_by=by,
+                       library_ms=None)
+    try:
+        kernels.shared_scalar_mul(fe.to_tensor(sc.pack_scalars([1, 2]), DEVICE), p)
+        rec["two_scalars_refused"] = False
+        rec["match"] = False
+    except ValueError:
+        rec["two_scalars_refused"] = True
+    del p
+
+    rec = records["scalar_mul_window"]
+    rec["checked_lanes"], rec["windows"] = [D, WINDOW_BROADCAST_LANES], {}
+    k, p = test_ladder_operands(D, rng)
+    ladder = encodings(kernels.scalar_mul(k, p))
+    kb, pb = test_ladder_operands(WINDOW_BROADCAST_LANES, rng)
+    kb = kb[:, 5:6].contiguous()
+    for w in kernels.WINDOWS:
+        got = kernels.scalar_mul_window(k, p, w)
+        want, plain_seconds = synced(lambda: kernels.scalar_mul_window_ref(k, p, w))
+        hold("scalar_mul_window", encodings(got), encodings(want))
+        hold("scalar_mul_window", encodings(got), ladder)  # the one-bit ladder's function
+        hold("scalar_mul_window", encodings(kernels.scalar_mul_window(kb, pb, w)),
+             encodings(kernels.scalar_mul_window_ref(kb, pb, w)))
+        ms = device_ms(lambda: kernels.scalar_mul_window(k, p, w), reps=3, rounds=3)
+        rec["windows"][w] = {"ms": ms, "plain_ms": 1e3 * plain_seconds}
+    rec.update(n=D, ms=rec["windows"][4]["ms"], plain_ms=rec["windows"][4]["plain_ms"],
+               library_ms=None, scalar_mul_ms_same_inputs=device_ms(
+                   lambda: kernels.scalar_mul(k, p), reps=3, rounds=3))
+    rec["bound_ms"], rec["bound_by"] = bound_ms("scalar_mul_window", D)
+    refused = []
+    for w in (1, 3, 8):
+        try:
+            kernels.scalar_mul_window(k, p, w)
+        except ValueError:
+            refused.append(w)
+    rec["other_windows_refused"] = refused == [1, 3, 8]
+    rec["match"] &= rec["other_windows_refused"]
+    del k, p
+    torch.cuda.empty_cache()
+
+
+def time_chains(rng: np.random.Generator) -> dict:
+    """Rows 13 and 14 of the TPU-kernel table: the reductions that the port
+    runs as chains of point_add (curve.tree_sum: EncL2Compressed's verify sums
+    its d square commitments so) and sc_add launches (sc.sum_reduce: the
+    compressed rand proof's inner products), timed at d = 50000 lanes; the
+    bound is one read of the lanes at the memory rate."""
+    p, _ = test_points(D, rng)
+    a, _ = test_scalars(D, rng)
+    before = dict(kernels.LAUNCHES)
+    curve.tree_sum(curve.PointArray(*p))
+    tree_launches = kernels.LAUNCHES["point_add"] - before["point_add"]
+    sc.sum_reduce(a, axis=0)
+    sum_launches = kernels.LAUNCHES["sc_add"] - before["sc_add"]
+    return {
+        "tree_sum": {"n": D, "point_add_launches": tree_launches,
+                     "ms": device_ms(lambda: curve.tree_sum(curve.PointArray(*p)), reps=3,
+                                     rounds=3),
+                     "bound_ms": 1e3 * D * 4 * LIMBS / HBM_BYTES_PER_S, "bound_by": "bytes"},
+        "sc_sum_reduce": {"n": D, "sc_add_launches": sum_launches,
+                          "ms": device_ms(lambda: sc.sum_reduce(a, axis=0), reps=3, rounds=3),
+                          "bound_ms": 1e3 * D * LIMBS / HBM_BYTES_PER_S, "bound_by": "bytes"},
+    }
 
 
 # -- phase 4: the round ----------------------------------------------------------
@@ -992,7 +1174,160 @@ def phase_l2() -> dict:
     failed += [f"{name} was never launched" for name in L2_KERNELS if launches[name] == 0]
     if failed:
         sys.exit(f"l2 failed: {failed}")
-    return launches
+    return launches, prove_s + verify_s
+
+
+# -- phase 7: the server round in the other encrypted modes -------------------------
+
+MODES_SEED = 11
+MODES_CLIENTS = 3
+MODES = (("enc_range", P.ENC_RANGE_TYPE), ("enc_range_compressed", P.ENC_RANGE_COMPRESSED_TYPE),
+         ("enc_l2_compressed", P.ENC_L2_COMPRESSED_TYPE))
+MODES_KERNELS = ("point_add", "compress", "decompress", "sc_reduce_wide", "sc_mul", "sc_add",
+                 "msm_flat", "msm_groups")
+# the per-lane ladder: EncRange's rand-proof verify, EncL2Compressed's square proofs
+LADDER_MODES = ("enc_range", "enc_l2_compressed")
+# EncL2Compressed's updates must also pass the L2 bound at L2 range 16: the sum
+# of the squared fixed-point values stays below 2^16, so almost every lane is
+# +-1 unit (2^-7) and the first L2_WIDE_LANES lanes +-2 units.
+L2_WIDE_LANES = 3000
+
+
+def modes_cfg(enc_type: int, check_percentage: float = 1.0) -> P.CryptoConfig:
+    return P.CryptoConfig(value_range=8, n_partition=16, l2_value_range=16,
+                          check_percentage=check_percentage, enc_type=enc_type, fp=FP)
+
+
+def mode_bits(enc_type: int, rng: np.random.Generator) -> np.ndarray:
+    """(clients, D) fixed-point updates, none 0: inside the 8-bit range
+    (|bits| <= 127) for the Range modes, inside the L2 bound for
+    EncL2Compressed."""
+    sign = rng.choice([-1, 1], size=(MODES_CLIENTS, D))
+    if enc_type == P.ENC_L2_COMPRESSED_TYPE:
+        mag = np.ones((MODES_CLIENTS, D), np.int64)
+        mag[:, :L2_WIDE_LANES] = 2
+    else:
+        mag = rng.integers(1, 128, size=(MODES_CLIENTS, D))
+    return sign * mag
+
+
+def frame_bytes(byte_fields: list, ints: list, floats: int = 0) -> int:
+    """The length of a length-delimited envelope from its parts: each bytes
+    field a one-byte tag, a varint length and its bytes; each int32 a tag and
+    its varint; each float a tag and 4 bytes; then the varint length prefix."""
+    def varint_len(n):
+        return max(1, (n.bit_length() + 6) // 7)
+
+    payload = (sum(1 + varint_len(n) + n for n in byte_fields)
+               + sum(1 + varint_len(v) for v in ints) + 5 * floats)
+    return varint_len(payload) + payload
+
+
+def mode_wire_bytes(enc) -> int:
+    ranges = [len(p.to_bytes()) for p in enc.range_proofs]
+    if isinstance(enc, P.EncParamsL2Compressed):
+        d = enc.enc_values.c_sq.x.shape[1]
+        return frame_bytes([96 * d, 160 * d, 128] + ranges + [len(enc.square_range_proof.to_bytes())],
+                           [enc.prove_range, enc.l2_prove_range])
+    d = enc.enc_values.L.x.shape[1]
+    rand = 128 * d if isinstance(enc, P.EncParamsRange) else 128
+    return frame_bytes([64 * d, rand] + ranges, [enc.prove_range], floats=1)
+
+
+def flipped(enc):
+    """The update with one bit of its rand proof flipped: the lowest bit of
+    one lane's z_m (EncRange), of the compressed proof's z_m (the compressed
+    modes)."""
+    if isinstance(enc, P.EncParamsRange):
+        z_m = enc.rand_proofs.z_m.clone()
+        z_m[0, TAMPERED_LANE] ^= 1
+        proofs = sigma.RandProofVec(enc.rand_proofs.c_prime, z_m, enc.rand_proofs.z_r)
+        return P.EncParamsRange(enc.enc_values, proofs, enc.range_proofs, enc.prove_range,
+                                enc.check_percentage, enc.fp)
+    proof = enc.rand_proof
+    bad = CRP.CompressedRandProof(proof.c_prime_L, proof.c_prime_R, proof.z_m ^ 1, proof.z_r)
+    fields = dict(enc.__dict__, rand_proof=bad)
+    return type(enc)(**fields)
+
+
+def phase_modes(l2_metric: float) -> dict:
+    rng = np.random.default_rng(MODES_SEED)
+    result = {"phase": "modes", "d": D, "clients": MODES_CLIENTS, "fp": [FP.n_bits, FP.n_frac],
+              "n_partition": 16, "value_range": 8, "l2_value_range": 16, "check_percentage": 1.0,
+              "seed": MODES_SEED, "l2_path_prove_verify_s_d50000": l2_metric, "modes": {}}
+    launches_by_mode, failed = {}, []
+    for mode, enc_type in MODES:
+        seconds, checks = {}, {}
+
+        def stage(name, fn):
+            out, seconds[name] = synced(fn)
+            return out
+
+        bits = mode_bits(enc_type, rng)
+        updates = (bits / FP.scale).astype(np.float32)
+        blindings = pedersen.cancelling_scalar_limbs(MODES_CLIENTS, D, rng, DEVICE)
+        cfg = modes_cfg(enc_type)
+        start_path()
+        acc = P.Accumulator(enc_type, D, FP, device=DEVICE)
+        decoded, wire_ok, sizes = [], True, []
+        for c in range(MODES_CLIENTS):
+            enc = stage(f"client_{c}.encrypt", lambda: P.encrypt(
+                enc_type, updates[c], blindings[c], cfg, rng, DEVICE))
+            data = stage(f"client_{c}.serialize", enc.serialize)
+            dec = stage(f"client_{c}.deserialize", lambda: P.deserialize(
+                enc_type, data, FP, DEVICE))
+            checks[f"client_{c}_verifies"] = bool(stage(f"client_{c}.verify",
+                                                        lambda: P.verify(dec, rng)))
+            checks[f"client_{c}_accumulated"] = bool(stage(f"client_{c}.accumulate",
+                                                           lambda: acc.accumulate(dec)))
+            wire_ok &= len(data) == mode_wire_bytes(enc)
+            sizes.append(len(data))
+            decoded.append(dec)
+        got = stage("extract", acc.extract)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        launches_by_mode[mode] = launches
+
+        # JAX's accumulator starts from (B, B), so its L holds B^(1 + sum m)
+        want = ((bits.sum(axis=0) + 1) / FP.scale).astype(np.float32)
+        checks["extract_exact"] = bool(got is not None and got.shape == (D,)
+                                       and np.isfinite(got).all() and np.array_equal(got, want))
+        checks["wire_bytes_match_parts"] = bool(wire_ok)
+        checks["flipped_rand_proof_refused"] = not P.verify(flipped(decoded[0]), rng)
+        partial = P.Accumulator(enc_type, D, FP, device=DEVICE)
+        for dec in decoded[:-1]:
+            partial.accumulate(dec)
+        checks["uncancelled_accumulator_extracts_none"] = partial.extract() is None
+        checks["wrong_size_refused"] = not P.Accumulator(enc_type, D - 1, FP,
+                                                         device=DEVICE).accumulate(decoded[0])
+        if enc_type == P.ENC_RANGE_TYPE:
+            half = P.encrypt(enc_type, updates[0], blindings[0], modes_cfg(enc_type, 0.5), rng,
+                             DEVICE)
+            back = stage("check_percentage_0.5.round_trip", lambda: P.deserialize(
+                enc_type, half.serialize(), FP, DEVICE))
+            checks["check_percentage_0.5_kept"] = back.check_percentage == 0.5
+            checks["check_percentage_0.5_verifies"] = bool(
+                stage("check_percentage_0.5.verify", lambda: P.verify(back, rng)))
+            checks["check_percentage_0.5_covers_half"] = (
+                sum(len(p.to_bytes()) for p in back.range_proofs) < sum(
+                    len(p.to_bytes()) for p in decoded[0].range_proofs))
+        last = f"client_{MODES_CLIENTS - 1}"
+        metric = f"{mode}_prove_verify_s_d50000"
+        result["modes"][mode] = {
+            "enc_type": enc_type, metric: seconds[f"{last}.encrypt"] + seconds[f"{last}.verify"],
+            "prove_s": seconds[f"{last}.encrypt"], "verify_s": seconds[f"{last}.verify"],
+            "extract_s": seconds["extract"], "wire_bytes": sizes[0], **checks,
+            "peak_device_bytes": peak, "seconds": seconds, "launches": launches}
+        failed += [f"{mode}: {name}" for name, ok in checks.items() if not ok]
+        need = MODES_KERNELS + (("scalar_mul",) if mode in LADDER_MODES else ())
+        failed += [f"{mode}: {name} was never launched" for name in need if launches[name] == 0]
+        del decoded, acc, partial
+        torch.cuda.empty_cache()
+    emit(result)
+    if failed:
+        sys.exit(f"modes failed: {failed}")
+    return launches_by_mode
 
 
 def main() -> None:
@@ -1001,19 +1336,22 @@ def main() -> None:
     records = phase_kernels()
     round_launches, state = phase_round()
     sigma_launches = phase_sigma(state)
-    l2_launches = phase_l2()
+    l2_launches, l2_metric = phase_l2()
+    mode_launches = phase_modes(l2_metric)
     print(smi, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "match",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "n",
             "checked_lanes")
-    msm_keys = ("group", "ms_at_131618", "plain_ms_at_131618", "bound_ms_at_131618")
+    extra_keys = ("group", "ms_at_131618", "plain_ms_at_131618", "bound_ms_at_131618",
+                  "scalars", "windows", "scalar_mul_ms_same_inputs")
     rows = []
     for name, rec in records.items():
         by_path = {"round": round_launches[name], "sigma": sigma_launches[name],
-                   "l2": l2_launches[name]}
+                   "l2": l2_launches[name],
+                   **{mode: launches[name] for mode, launches in mode_launches.items()}}
         rec = {**rec, **KERNEL_FACTS[name], "launches": sum(by_path.values()),
                "launches_by_path": by_path}
-        rows.append({**{k: rec[k] for k in keys}, **{k: rec[k] for k in msm_keys if k in rec}})
+        rows.append({**{k: rec[k] for k in keys}, **{k: rec[k] for k in extra_keys if k in rec}})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

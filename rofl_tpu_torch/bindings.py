@@ -1,6 +1,6 @@
-"""FFI-parity API, aggregation, range-proof, Σ-proof and L2 sections: the
-reference's C bindings for the secure-aggregation round, the L∞ and L2 range
-proofs and the rand / square-rand proofs as one flat Python module.
+"""FFI-parity API: the reference's C bindings (the secure-aggregation round,
+the L∞ and L2 range proofs, the rand / square-rand proofs, the vector helpers
+and ``quantize_probabilistic``) as one flat Python module.
 
 Counterpart of ``rofl_tpu.bindings``: the same functions taking and returning
 the identical bincode wire formats (see crypto/serde_vec.py), so a caller
@@ -272,6 +272,13 @@ def equals_neutral_group_element_vec(commit_blob: bytes, device="cuda") -> list[
 def clip_to_range(values: np.ndarray, range_exp: int, fp: FpConfig = DEFAULT_FP) -> np.ndarray:
     """bindings32.rs:652-658."""
     return range_proof_vec.clip_f32_to_range_vec(np.asarray(values, np.float32), fp, range_exp)
+
+
+def quantize_probabilistic(values: np.ndarray, range_exp: int,
+                           fp: FpConfig = DEFAULT_FP) -> np.ndarray:
+    """Clips only, exactly like the reference stub (bindings32.rs:661-672,
+    prob_quant.rs)."""
+    return clip_to_range(values, range_exp, fp)
 
 
 def create_zero_scalar_vector(length: int) -> bytes:

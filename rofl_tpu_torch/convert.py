@@ -14,10 +14,12 @@ import numpy as np
 import torch
 
 from .crypto import sigma
+from .crypto.compressed_rand_proof import CompressedRandProof
 from .crypto.fp_codec import FpConfig
 from .crypto.pedersen import ElGamalPairArray
 from .crypto.range_proof import RangeProof
-from .fl.params import EncParamsL2
+from .fl.params import (PLAIN_TYPE, Accumulator, EncParamsL2, EncParamsL2Compressed,
+                        EncParamsRange, EncParamsRangeCompressed)
 from .ops import fe
 from .ops.curve import PointArray
 
@@ -158,3 +160,97 @@ def enc_params_l2_to_numpy(p: EncParamsL2) -> tuple:
     return (square_rand_commit_to_numpy(p.enc_values), square_rand_proof_to_numpy(p.square_proofs),
             [r.to_bytes() for r in p.range_proofs], p.square_range_proof.to_bytes(),
             p.prove_range, p.l2_prove_range, p.fp)
+
+
+# -- the other encrypted modes -------------------------------------------------------
+#
+# A CompressedRandProof (the same dataclass of bytes and ints in both
+# packages) is carried as its ``to_bytes()``, a range proof as its
+# ``to_bytes()``; the rest as in the functions above.
+
+
+def enc_params_range_from_numpy(enc_values, rand_proofs, range_proofs, prove_range: int,
+                                check_percentage: float, fp: FpConfig,
+                                device="cuda") -> EncParamsRange:
+    """A ``rofl_tpu.fl.params.EncParamsRange`` given field by field →
+    the port's: enc_values in the layout of ``pair_to_numpy``, rand_proofs
+    in that of ``rand_proof_to_numpy``."""
+    return EncParamsRange(pair_from_numpy(*enc_values, device=device),
+                          rand_proof_from_numpy(*rand_proofs, device=device),
+                          [RangeProof.from_bytes(b) for b in range_proofs], prove_range,
+                          check_percentage, FpConfig(fp.n_bits, fp.n_frac))
+
+
+def enc_params_range_to_numpy(p: EncParamsRange) -> tuple:
+    """The port's EncParamsRange → the arguments of
+    ``enc_params_range_from_numpy`` (without the device)."""
+    return (pair_to_numpy(p.enc_values), rand_proof_to_numpy(p.rand_proofs),
+            [r.to_bytes() for r in p.range_proofs], p.prove_range, p.check_percentage, p.fp)
+
+
+def enc_params_range_compressed_from_numpy(enc_values, rand_proof: bytes, range_proofs,
+                                           prove_range: int, check_percentage: float,
+                                           fp: FpConfig,
+                                           device="cuda") -> EncParamsRangeCompressed:
+    return EncParamsRangeCompressed(pair_from_numpy(*enc_values, device=device),
+                                    CompressedRandProof.from_bytes(rand_proof),
+                                    [RangeProof.from_bytes(b) for b in range_proofs],
+                                    prove_range, check_percentage,
+                                    FpConfig(fp.n_bits, fp.n_frac))
+
+
+def enc_params_range_compressed_to_numpy(p: EncParamsRangeCompressed) -> tuple:
+    return (pair_to_numpy(p.enc_values), p.rand_proof.to_bytes(),
+            [r.to_bytes() for r in p.range_proofs], p.prove_range, p.check_percentage, p.fp)
+
+
+def enc_params_l2_compressed_from_numpy(enc_values, square_proofs, rand_proof: bytes,
+                                        range_proofs, square_range_proof: bytes,
+                                        prove_range: int, l2_prove_range: int, fp: FpConfig,
+                                        device="cuda") -> EncParamsL2Compressed:
+    """enc_values in the layout of ``square_rand_commit_to_numpy``,
+    square_proofs in that of ``square_proof_to_numpy``."""
+    return EncParamsL2Compressed(
+        square_rand_commit_from_numpy(*enc_values, device=device),
+        square_proof_from_numpy(*square_proofs, device=device),
+        CompressedRandProof.from_bytes(rand_proof),
+        [RangeProof.from_bytes(b) for b in range_proofs],
+        RangeProof.from_bytes(square_range_proof), prove_range, l2_prove_range,
+        FpConfig(fp.n_bits, fp.n_frac))
+
+
+def enc_params_l2_compressed_to_numpy(p: EncParamsL2Compressed) -> tuple:
+    return (square_rand_commit_to_numpy(p.enc_values), square_proof_to_numpy(p.square_proofs),
+            p.rand_proof.to_bytes(), [r.to_bytes() for r in p.range_proofs],
+            p.square_range_proof.to_bytes(), p.prove_range, p.l2_prove_range, p.fp)
+
+
+# -- the server's accumulator ---------------------------------------------------------
+
+
+def accumulator_from_numpy(enc_type: int, size: int, fp: FpConfig, bsgs_m: int, state,
+                           device="cuda") -> Accumulator:
+    """A ``rofl_tpu.fl.params.Accumulator``'s state → the port's: `state` is
+    its ``plain`` float32 array in Plain mode, else its ``pairs`` in the
+    layout of ``pair_to_numpy``. The sums carry over as they are, so the
+    port's ``extract`` gives what the JAX server's would."""
+    fp = FpConfig(fp.n_bits, fp.n_frac)
+    acc = Accumulator(enc_type, size, fp, bsgs_m=bsgs_m, device=device)
+    if enc_type == PLAIN_TYPE:
+        plain = np.asarray(state, np.float32)
+        if plain.shape != (size,):
+            raise ValueError(f"plain accumulator of {size} values given {plain.shape}")
+        acc.plain = plain.copy()
+        return acc
+    pairs = pair_from_numpy(*state, device=device)
+    if pairs.L.x.shape != (16, size) or pairs.R.x.shape != (16, size):
+        raise ValueError(f"accumulator of {size} pairs given {tuple(pairs.L.x.shape)}")
+    acc.pairs = pairs
+    return acc
+
+
+def accumulator_to_numpy(acc: Accumulator) -> tuple:
+    """The port's Accumulator → the arguments of ``accumulator_from_numpy``
+    (without the device)."""
+    state = acc.plain.copy() if acc.enc_type == PLAIN_TYPE else pair_to_numpy(acc.pairs)
+    return acc.enc_type, acc.size, acc.fp, acc.bsgs_m, state

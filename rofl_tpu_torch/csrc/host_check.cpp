@@ -139,6 +139,43 @@ void host_scalar_mul(const int32_t *k, int k_lanes, const int32_t *px, const int
   }
 }
 
+// The loop of csrc/shared_scalar_mul.cu: one scalar k (16 limbs) for every
+// lane, 256 steps from bit 255 down, the add only on a set bit.
+void host_shared_scalar_mul(const uint32_t *k, const int32_t *px, const int32_t *py,
+                            const int32_t *pz, const int32_t *pt, int32_t *ox, int32_t *oy,
+                            int32_t *oz, int32_t *ot, int n) {
+  scalar16 ks;
+  for (int i = 0; i < NLIMB; ++i) ks.v[i] = k[i];
+  for (int lane = 0; lane < n; ++lane) {
+    ge p = load_point(px, py, pz, pt, n, lane);
+    ge acc = ge_identity();
+    for (int limb = NLIMB - 1; limb >= 0; --limb) {
+      for (int bit = 15; bit >= 0; --bit) {
+        acc = ge_shared_ladder_step(acc, p, ((ks.v[limb] >> bit) & 1u) != 0);
+      }
+    }
+    store_point(ox, oy, oz, ot, n, lane, acc);
+  }
+}
+
+// The body of csrc/scalar_mul_window.cu for window 2 or 4 (anything else
+// writes nothing and returns 1), with its scratch table of
+// 2^window * 64 * n int32.
+int host_scalar_mul_window(int window, const int32_t *k, int k_lanes, const int32_t *px,
+                           const int32_t *py, const int32_t *pz, const int32_t *pt,
+                           int32_t *table, int32_t *ox, int32_t *oy, int32_t *oz, int32_t *ot,
+                           int n) {
+  if (window != 2 && window != 4) return 1;
+  for (int lane = 0; lane < n; ++lane) {
+    ge p = load_point(px, py, pz, pt, n, lane);
+    int64_t kl = k_lanes == 1 ? 0 : lane;
+    ge acc = window == 2 ? ge_scalar_mul_window<2>(k, k_lanes, kl, table, n, lane, p)
+                         : ge_scalar_mul_window<4>(k, k_lanes, kl, table, n, lane, p);
+    store_point(ox, oy, oz, ot, n, lane, acc);
+  }
+  return 0;
+}
+
 // The grid of csrc/msm.cu with `threads` threads a block, run block by
 // block and thread by thread: each thread's ge_msm_lanes, then the block's
 // halving tree (threads a power of two). Writes the partial sums, (16,

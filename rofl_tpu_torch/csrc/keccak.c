@@ -1,8 +1,8 @@
 /* Keccak-f[1600] and the STROBE-128 absorb / overwrite / squeeze loops of
  * the host Merlin transcripts (rofl_tpu_torch/spec/merlin.py), and the bulk
- * loop of Transcript.append_messages. A sponge is sequential, so the host
- * runs it in native code; the batched transcripts of the Sigma-protocols run
- * on the device instead (ops/keccak_batch.py).
+ * loops of Transcript.append_messages and .append_labeled_messages. A sponge
+ * is sequential, so the host runs it in native code; the batched transcripts
+ * of the Sigma-protocols run on the device instead (ops/keccak_batch.py).
  *
  * The port's own copy of rofl_tpu/utils/native/keccak.c. Built at first use
  * with the system cc (cc -O3 -shared -fPIC) by rofl_tpu_torch/utils/native.py
@@ -127,9 +127,11 @@ int strobe_squeeze(uint8_t state[200], int pos, int *pos_begin_io,
  * meta_ad(label, more=false), meta_ad(u32le(msg_len), more=true),
  * ad(msg, more=false) — entirely in C (one ctypes call per transcript
  * instead of 3 per message; the verifier replays 2^16 point absorbs).
+ * Message i goes under the label at labels + i * label_stride: stride 0
+ * for one label for all, label_len for a label of its own each.
  * Flags: meta_ad = M|A = 0x12, ad = A = 0x02; neither forces F. */
-int merlin_absorb_msgs(uint8_t state[200], int pos, int *pos_begin_io,
-                       const uint8_t *label, long label_len,
+static int absorb_msgs(uint8_t state[200], int pos, int *pos_begin_io,
+                       const uint8_t *labels, long label_len, long label_stride,
                        const uint8_t *msgs, long msg_len, long count,
                        int strobe_r) {
   long i;
@@ -145,8 +147,8 @@ int merlin_absorb_msgs(uint8_t state[200], int pos, int *pos_begin_io,
     hdr[1] = 0x12;
     *pos_begin_io = pos + 1;
     pos = strobe_absorb(state, pos, pos_begin_io, hdr, 2, strobe_r);
-    pos = strobe_absorb(state, pos, pos_begin_io, label, label_len,
-                        strobe_r);
+    pos = strobe_absorb(state, pos, pos_begin_io, labels + i * label_stride,
+                        label_len, strobe_r);
     /* meta_ad(len, more=true): plain absorb, no new op */
     pos = strobe_absorb(state, pos, pos_begin_io, len_le, 4, strobe_r);
     /* begin_op(A) + message */
@@ -158,4 +160,24 @@ int merlin_absorb_msgs(uint8_t state[200], int pos, int *pos_begin_io,
                         msg_len, strobe_r);
   }
   return pos;
+}
+
+/* `count` messages, all under one label (Transcript.append_messages). */
+int merlin_absorb_msgs(uint8_t state[200], int pos, int *pos_begin_io,
+                       const uint8_t *label, long label_len,
+                       const uint8_t *msgs, long msg_len, long count,
+                       int strobe_r) {
+  return absorb_msgs(state, pos, pos_begin_io, label, label_len, 0, msgs,
+                     msg_len, count, strobe_r);
+}
+
+/* `count` messages, message i under the i-th label_len-byte label of
+ * `labels` (Transcript.append_labeled_messages: the compressed rand proof
+ * absorbs each commitment under a 3-byte label of its own). */
+int merlin_absorb_labeled_msgs(uint8_t state[200], int pos, int *pos_begin_io,
+                               const uint8_t *labels, long label_len,
+                               const uint8_t *msgs, long msg_len, long count,
+                               int strobe_r) {
+  return absorb_msgs(state, pos, pos_begin_io, labels, label_len, label_len,
+                     msgs, msg_len, count, strobe_r);
 }

@@ -36,18 +36,6 @@ namespace {
 constexpr int THREADS = 64;
 constexpr int POINT_WORDS = 4 * NLIMB;
 
-__device__ __forceinline__ ge load_shared_point(const uint32_t (*sp)[THREADS], int tid) {
-  ge p;
-  ROFL_UNROLL
-  for (int k = 0; k < NLIMB; ++k) {
-    p.x.v[k] = sp[k][tid];
-    p.y.v[k] = sp[NLIMB + k][tid];
-    p.z.v[k] = sp[2 * NLIMB + k][tid];
-    p.t.v[k] = sp[3 * NLIMB + k][tid];
-  }
-  return p;
-}
-
 __global__ void __launch_bounds__(THREADS)
 scalar_mul_kernel(const int32_t *k, int k_lanes, const int32_t *px, const int32_t *py,
                   const int32_t *pz, const int32_t *pt, int32_t *ox, int32_t *oy,
@@ -70,7 +58,7 @@ scalar_mul_kernel(const int32_t *k, int k_lanes, const int32_t *px, const int32_
     uint32_t word = (uint32_t)k[(int64_t)limb * k_lanes + kl];
     ROFL_NO_UNROLL
     for (int bit = 15; bit >= 0; --bit) {
-      acc = ge_ladder_step(acc, load_shared_point(sp, tid), ((word >> bit) & 1u) != 0);
+      acc = ge_ladder_step(acc, ge_load_columns<THREADS>(sp, tid), ((word >> bit) & 1u) != 0);
     }
   }
   fe_store(ox, n, lane, acc.x);

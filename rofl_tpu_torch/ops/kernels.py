@@ -1,9 +1,10 @@
 """The hand-written Hopper kernels for the curve and scalar hot paths, their
 build, their wrappers, and the plain torch version of each.
 
-Counterpart of ``rofl_tpu/ops/kernels.py``. Eleven of its TPU kernel
-wrappers are here (``msm_flat`` launches the ``msm_groups`` kernel with one
-group, counted apart):
+Counterpart of ``rofl_tpu/ops/kernels.py``: every one of its TPU kernels
+has a counterpart here, thirteen wrappers on twelve CUDA sources
+(``msm_flat`` launches the ``msm_groups`` kernel with one group, counted
+apart):
 
   point_add     csrc/point_add.cu     (TPU: _add_kernel / point_add)
   point_double  csrc/point_double.cu  (TPU: _double_kernel / point_double)
@@ -16,6 +17,15 @@ group, counted apart):
   scalar_mul    csrc/scalar_mul.cu    (TPU: _scalar_mul_kernel / scalar_mul, W=1)
   msm_flat, msm_groups  csrc/msm.cu   (TPU: _msm_bitplane_kernel /
                 _make_msm_window_kernel / msm_flat, msm_groups)
+  shared_scalar_mul  csrc/shared_scalar_mul.cu  (TPU: _shared_mul_kernel /
+                shared_scalar_mul)
+  scalar_mul_window  csrc/scalar_mul_window.cu  (TPU: _make_smul_window_kernel,
+                scalar_mul under ROFL_SMUL_W > 1)
+
+No default path of either package calls the last two: the JAX package calls
+``shared_scalar_mul`` nowhere, and runs its windowed ladder only where the
+environment asks for it; the port's paths keep the one-bit ``scalar_mul``
+and have no switch for the window.
 
 Each is CUDA C++ for sm_90a, one lane per thread (the MSM: a few lanes a
 thread and a sum a block), sharing the field, point and
@@ -67,6 +77,8 @@ KERNEL_SOURCES = {
     "scalar_mul": "scalar_mul.cu",
     "msm_flat": "msm.cu",
     "msm_groups": "msm.cu",
+    "shared_scalar_mul": "shared_scalar_mul.cu",
+    "scalar_mul_window": "scalar_mul_window.cu",
 }
 _HEADERS = ("fe25519.cuh", "ge25519.cuh", "sc25519.cuh")
 
@@ -86,6 +98,8 @@ _ARGTYPES = {
     "sc_sub": [_P, _I, _P, _I, _P, _I, _P],
     "scalar_mul": [_P, _I] + [_P] * 8 + [_I, _P],
     "msm_groups": [_P, _I] + [_P] * 4 + [_I] * 3 + [_P] * 4 + [_P],
+    "shared_scalar_mul": [_P] * 9 + [_I, _P],
+    "scalar_mul_window": [_I, _P, _I] + [_P] * 9 + [_I, _P],
 }
 # The C function of a wrapper, where it is not rofl_<wrapper>: msm_flat is
 # msm_groups with one group.
@@ -175,6 +189,11 @@ def _check_coords(what: str, coords, device: torch.device, lanes: tuple) -> None
             raise ValueError(
                 f"{what}: expected contiguous (16, n) int32 on {device} with n in "
                 f"{lanes}, got {got}")
+
+
+def _identity_coords(n: int, device) -> tuple:
+    return (fe.zeros((n,), device), fe.ones((n,), device), fe.ones((n,), device),
+            fe.zeros((n,), device))
 
 
 def _empty_coords(k: int, n: int, device: torch.device) -> list:
@@ -454,9 +473,7 @@ def scalar_mul_ref(k, p):
     The unified add also doubles, so a step is one plain add over 2N lanes:
     (acc, addend) + (addend, addend). For tests at a few lanes."""
     n = p[0].shape[1]
-    device = p[0].device
-    acc = (fe.zeros((n,), device), fe.ones((n,), device), fe.ones((n,), device),
-           fe.zeros((n,), device))
+    acc = _identity_coords(n, p[0].device)
     addend = p
     for i in range(256):
         bit = ((k[i >> 4] >> (i & 15)) & 1).to(torch.bool)
@@ -573,3 +590,111 @@ def msm_flat(k, p):
     if not use_kernels(p[0]):
         return msm_flat_ref(k, p)
     return _msm("msm_flat", k, p, p[0].shape[-1])
+
+
+# =============================================================================
+# shared_scalar_mul
+# =============================================================================
+
+
+def _shared_scalar_limbs(k) -> np.ndarray:
+    """One scalar, (16,) or (16, 1) limbs (a tensor or numpy) → its 16 limbs
+    as a contiguous uint32 array on the host."""
+    limbs = fe.to_numpy(k)
+    if limbs.size != NLIMB:
+        raise ValueError(f"shared_scalar_mul: k must be one scalar, (16,) or (16, 1), got "
+                         f"{limbs.shape}")
+    return np.ascontiguousarray(limbs.reshape(NLIMB), dtype=np.uint32)
+
+
+def shared_scalar_mul_ref(k, p):
+    """k * P_i for one scalar k, as the TPU kernel computes it: 256 steps
+    from the least significant bit, acc = acc + addend on a set bit (the
+    add is skipped on a zero bit, which is public), addend = 2 addend."""
+    limbs = _shared_scalar_limbs(k)
+    acc = _identity_coords(p[0].shape[1], p[0].device)
+    addend = tuple(p)
+    for i in range(256):
+        if (int(limbs[i >> 4]) >> (i & 15)) & 1:
+            acc = point_add_ref(acc, addend)
+        addend = point_double_ref(addend)
+    return tuple(c.contiguous() for c in acc)  # as the kernel returns them
+
+
+def shared_scalar_mul(k, p):
+    """k * P_i for one scalar k ((16,) or (16, 1) limbs, on any device)
+    across the N lanes of an (x, y, z, t) tuple of (16, N) int32 limbs. All
+    256 bits of k are walked, so k need not be canonical. The add is skipped
+    on a zero bit in both versions, so the time depends on the Hamming
+    weight of k: for public scalars. Equal to the plain version as group
+    elements (compare encodings or with ``curve.eq``)."""
+    if not use_kernels(p[0]):
+        return shared_scalar_mul_ref(k, p)
+    device = p[0].device
+    n = p[0].shape[-1]
+    _check_coords("shared_scalar_mul p", p, device, (n,))
+    limbs = _shared_scalar_limbs(k)  # on the host: the kernel takes it by value
+    out = _empty_coords(4, n, device)
+    _launch("shared_scalar_mul", device, limbs.ctypes.data, *[c.data_ptr() for c in p],
+            *[c.data_ptr() for c in out], n)
+    return tuple(out)
+
+
+# =============================================================================
+# scalar_mul_window
+# =============================================================================
+
+WINDOWS = (2, 4)  # the divisors of 16 worth running; 1 is scalar_mul
+
+
+def _check_window(window: int) -> None:
+    if window not in WINDOWS:
+        raise ValueError(f"scalar_mul_window: window must be one of {WINDOWS}, got {window}")
+
+
+def scalar_mul_window_ref(k, p, window: int):
+    """k * P per lane by `window`-bit windows, as the TPU kernel
+    (_make_smul_window_kernel) computes it: the multiples M[0] = identity,
+    M[1] = P, M[j] = 2 M[j/2] (j even) or M[j-1] + P (j odd); then from the
+    top window down, `window` doublings, M[digit] picked by a select tree
+    over every multiple, and one add."""
+    _check_window(window)
+    n = p[0].shape[1]
+    mult = [_identity_coords(n, p[0].device), tuple(p)]
+    for j in range(2, 1 << window):
+        mult.append(point_double_ref(mult[j // 2]) if j % 2 == 0
+                    else point_add_ref(mult[j - 1], tuple(p)))
+    acc = mult[0]
+    for wi in reversed(range(256 // window)):
+        b = wi * window
+        digit = (k[b >> 4] >> (b & 15)) & ((1 << window) - 1)
+        cands = mult
+        for level in range(window):
+            bit = ((digit >> level) & 1).to(torch.bool)
+            cands = [tuple(fe.select(bit, t, f) for t, f in zip(cands[2 * i + 1], cands[2 * i]))
+                     for i in range(len(cands) // 2)]
+        for _ in range(window):
+            acc = point_double_ref(acc)
+        acc = point_add_ref(acc, cands[0])
+    return tuple(c.contiguous() for c in acc)  # as the kernel returns them
+
+
+def scalar_mul_window(k, p, window: int):
+    """The function of ``scalar_mul`` (scalars k (16, N) or one broadcast
+    lane (16, 1), points an (x, y, z, t) tuple of (16, N) int32 limbs) by
+    `window`-bit windows, window 2 or 4; any other raises ValueError. The
+    kernel keeps each lane's 2^window multiples in a scratch table of
+    2^window * 256 bytes a lane. Equal to ``scalar_mul`` and to the plain
+    version as group elements (compare encodings or with ``curve.eq``)."""
+    _check_window(window)
+    if not use_kernels(p[0]):
+        return scalar_mul_window_ref(k, p, window)
+    device = p[0].device
+    n = p[0].shape[-1]
+    _check_coords("scalar_mul_window p", p, device, (n,))
+    _check_coords("scalar_mul_window k", (k,), device, (n, 1))
+    table = torch.empty(((1 << window) * 4 * NLIMB * n,), dtype=fe.DTYPE, device=device)
+    out = _empty_coords(4, n, device)
+    _launch("scalar_mul_window", device, window, k.data_ptr(), k.shape[1],
+            *[c.data_ptr() for c in p], table.data_ptr(), *[c.data_ptr() for c in out], n)
+    return tuple(out)

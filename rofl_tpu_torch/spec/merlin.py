@@ -184,6 +184,23 @@ class Transcript:
             s.state, s.pos, s.pos_begin, label, blob, msg_len, len(msgs), STROBE_R)
         s.cur_flags = FLAG_A
 
+    def append_labeled_messages(self, labels: bytes, label_len: int, blob: bytes,
+                                msg_len: int) -> None:
+        """``append_message(label_i, msg_i)`` for i = 0, 1, ...: the labels
+        are `labels` cut into `label_len`-byte pieces, the messages `blob`
+        cut into `msg_len`-byte pieces, as many of each; one native call
+        (the compressed rand proof absorbs d commitments, each under a label
+        of its own). Bit-identical to the loop."""
+        count = len(blob) // msg_len if msg_len else 0
+        if len(blob) != msg_len * count or len(labels) != label_len * count:
+            raise ValueError("append_labeled_messages: labels and messages do not pair up")
+        if not count:
+            return
+        s = self.strobe
+        s.pos, s.pos_begin = native.merlin_absorb_labeled_msgs(
+            s.state, s.pos, s.pos_begin, labels, label_len, blob, msg_len, count, STROBE_R)
+        s.cur_flags = FLAG_A
+
     def challenge_bytes(self, label: bytes, n: int) -> bytes:
         self.strobe.meta_ad(label, False)
         self.strobe.meta_ad(_u32le(n), True)

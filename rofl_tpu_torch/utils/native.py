@@ -57,11 +57,12 @@ def lib() -> ctypes.CDLL:
         for fn in (so.strobe_absorb, so.strobe_overwrite, so.strobe_squeeze):
             fn.argtypes = sponge
             fn.restype = ctypes.c_int
-        so.merlin_absorb_msgs.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-            ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_long, ctypes.c_long,
-            ctypes.c_int]
-        so.merlin_absorb_msgs.restype = ctypes.c_int
+        for fn in (so.merlin_absorb_msgs, so.merlin_absorb_labeled_msgs):
+            fn.argtypes = [
+                ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_long, ctypes.c_long,
+                ctypes.c_int]
+            fn.restype = ctypes.c_int
         _lib = so
         return _lib
 
@@ -113,4 +114,17 @@ def merlin_absorb_msgs(state: bytearray, pos: int, pos_begin: int, label: bytes,
     begin = ctypes.c_int(pos_begin)
     pos = lib().merlin_absorb_msgs(_state(state), pos, ctypes.byref(begin), bytes(label),
                                    len(label), bytes(blob), msg_len, count, rate)
+    return pos, begin.value
+
+
+def merlin_absorb_labeled_msgs(state: bytearray, pos: int, pos_begin: int, labels: bytes,
+                               label_len: int, blob: bytes, msg_len: int, count: int,
+                               rate: int) -> tuple[int, int]:
+    """`count` Merlin append_message calls of `msg_len`-byte messages cut
+    from `blob`, message i under the i-th `label_len`-byte label cut from
+    `labels` → (pos, pos_begin)."""
+    begin = ctypes.c_int(pos_begin)
+    pos = lib().merlin_absorb_labeled_msgs(_state(state), pos, ctypes.byref(begin),
+                                           bytes(labels), label_len, bytes(blob), msg_len,
+                                           count, rate)
     return pos, begin.value

@@ -286,3 +286,58 @@ def test_msm_grid_on_host(lib, group, per_thread, k_lanes):
         for i in range(g * group, (g + 1) * group):
             want = want + pts[i].scalar_mul(ks[i])
         assert got.compress() == want.compress()
+
+
+SHARED_SCALARS = {"zero": 0, "one": 1, "l_minus_1": None, "low_weight": (1 << 200) | 5,
+                  "high_weight": 2**253 - 1, "random": None}
+
+
+@pytest.mark.parametrize("kind", sorted(SHARED_SCALARS))
+def test_shared_scalar_mul_ladder_on_host(lib, kind):
+    """The loop of csrc/shared_scalar_mul.cu (one scalar for every lane, the
+    add only on a set bit) against the spec: k = 0, 1, l-1, scalars of low
+    and high Hamming weight and a random one, on random points with the
+    identity and the basepoint among them."""
+    from rofl_tpu_torch.spec import scalar as SS
+
+    p, _ = points()
+    n = len(p)
+    k = {"l_minus_1": SS.L - 1,
+         "random": int.from_bytes(rng.bytes(32), "little") % SS.L}.get(kind,
+                                                                        SHARED_SCALARS[kind])
+    pa = coords_i32(curve.pack_points(p, "cpu"))
+    k_np = np.ascontiguousarray(fe.pack_scalars([k])[:, 0].astype(np.uint32))
+    out = [np.zeros((16, n), np.int32) for _ in range(4)]
+    lib.host_shared_scalar_mul(ptr(k_np), *map(ptr, pa), *map(ptr, out), n)
+    got = curve.PointArray(*[torch.from_numpy(o) for o in out])
+    assert [bytes(r) for r in curve.compress_to_bytes(got)] == [
+        q.scalar_mul(k).compress() for q in p]
+
+
+@pytest.mark.parametrize("window", [2, 4])
+def test_scalar_mul_window_on_host(lib, window):
+    """The body of csrc/scalar_mul_window.cu (the table of 2^W multiples in
+    its [entry][word][lane] scratch, the lookup that reads every entry, the
+    windows from the top) against the spec: k = 0, 1, l-1 and 2^256-1, the
+    identity and the basepoint as P, random pairs, and k as one broadcast
+    lane."""
+    from rofl_tpu_torch.spec import scalar as SS
+
+    L = SS.L
+    p, _ = points()
+    n = len(p)
+    ks = [0, 1, L - 1, 2**256 - 1] + [
+        int.from_bytes(rng.bytes(32), "little") % L for _ in range(n - 4)]
+    pa = coords_i32(curve.pack_points(p, "cpu"))
+    k_np = limbs_i32(ks)
+    for k_lanes, k_arr, k_list in ((n, k_np, ks),
+                                   (1, np.ascontiguousarray(k_np[:, 5:6]), [ks[5]] * n)):
+        out = [np.zeros((16, n), np.int32) for _ in range(4)]
+        table = np.zeros((1 << window) * 64 * n, np.int32)
+        assert lib.host_scalar_mul_window(window, ptr(k_arr), k_lanes, *map(ptr, pa),
+                                          ptr(table), *map(ptr, out), n) == 0
+        got = curve.PointArray(*[torch.from_numpy(o) for o in out])
+        assert [bytes(r) for r in curve.compress_to_bytes(got)] == [
+            q.scalar_mul(k % L).compress() for q, k in zip(p, k_list)]
+    assert lib.host_scalar_mul_window(3, ptr(k_np), n, *map(ptr, pa), ptr(table),
+                                      *map(ptr, out), n) == 1

@@ -76,7 +76,7 @@ def test_kernels_equal_their_plain_versions(card, n):
     assert {k: kernels.LAUNCHES[k] - before[k] for k in before} == {
         "point_add": 2, "point_double": 1, "compress": 1, "decompress": 1,
         "sc_reduce_wide": 2, "sc_mul": 2, "sc_add": 2, "sc_sub": 2, "scalar_mul": 0,
-        "msm_flat": 0, "msm_groups": 0}
+        "msm_flat": 0, "msm_groups": 0, "shared_scalar_mul": 0, "scalar_mul_window": 0}
 
 
 @pytest.mark.parametrize("n", [1, 6, 77])
@@ -192,3 +192,63 @@ def test_msm_wrappers_refuse_what_the_kernel_does_not_take(card):
             call(a.cpu(), p)
     with pytest.raises(ValueError):
         kernels.msm_groups(a, p, 3)  # 3 does not divide 8
+
+
+@pytest.mark.parametrize("k", [0, 1, SS.L - 1, (1 << 200) | 5, 2**253 - 1, 2**256 - 1])
+def test_shared_scalar_mul_kernel_equals_its_plain_version_and_the_spec(card, k):
+    rng = np.random.default_rng(k % 1000)
+    pool = [SR.hash_from_bytes_sha512(rng.bytes(16)) for _ in range(3)]
+    pool += [SR.identity(), SR.BASEPOINT]
+    pts = [pool[i % len(pool)] for i in range(77)]
+    p = tuple(curve.pack_points(pts, card))
+    limbs = fe.to_tensor(sc.pack_scalars([k]), card)
+    before = kernels.LAUNCHES["shared_scalar_mul"]
+    got = kernels.shared_scalar_mul(limbs, p)
+    host = kernels.shared_scalar_mul(sc.pack_scalars([k]).reshape(16), p)  # host limbs too
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["shared_scalar_mul"] - before == 2
+    want = kernels.compress(kernels.shared_scalar_mul_ref(limbs, p))
+    assert torch.equal(kernels.compress(got), want) and torch.equal(kernels.compress(host), want)
+    assert [bytes(r) for r in curve.compress_to_bytes(curve.PointArray(*got))] == [
+        q.scalar_mul(k % SS.L).compress() for q in pts]
+
+
+@pytest.mark.parametrize("window", kernels.WINDOWS)
+@pytest.mark.parametrize("n", [1, 6, 77])
+def test_scalar_mul_window_kernel_equals_its_plain_version_and_the_spec(card, window, n):
+    rng = np.random.default_rng(window * 100 + n)
+    pool = [SR.hash_from_bytes_sha512(rng.bytes(16)) for _ in range(3)]
+    pool += [SR.identity(), SR.BASEPOINT]
+    pts = [pool[i % len(pool)] for i in range(n)]
+    ks = [[0, 1, SS.L - 1][i % 3] if i < 6 else int.from_bytes(rng.bytes(32), "little") % SS.L
+          for i in range(n)]
+    p = tuple(curve.pack_points(pts, card))
+    k = fe.to_tensor(sc.pack_scalars(ks), card)
+    before = kernels.LAUNCHES["scalar_mul_window"]
+    got = kernels.scalar_mul_window(k, p, window)
+    one = kernels.scalar_mul_window(k[:, -1:].contiguous(), p, window)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["scalar_mul_window"] - before == 2
+    assert torch.equal(kernels.compress(got),
+                       kernels.compress(kernels.scalar_mul_window_ref(k, p, window)))
+    assert torch.equal(kernels.compress(got), kernels.compress(kernels.scalar_mul(k, p)))
+    assert [bytes(r) for r in curve.compress_to_bytes(curve.PointArray(*got))] == [
+        q.scalar_mul(v).compress() for q, v in zip(pts, ks)]
+    assert [bytes(r) for r in curve.compress_to_bytes(curve.PointArray(*one))] == [
+        q.scalar_mul(ks[-1]).compress() for q in pts]
+
+
+def test_new_ladder_wrappers_refuse_what_the_kernels_do_not_take(card):
+    p, _ = operands(8, card, seed=6)
+    k = torch.zeros((16, 8), dtype=torch.int32, device=card)
+    for window in (1, 3, 8):
+        with pytest.raises(ValueError):
+            kernels.scalar_mul_window(k, p, window)
+    with pytest.raises(ValueError):
+        kernels.scalar_mul_window(k[:, :3].contiguous(), p, 4)  # neither n nor 1 scalars
+    with pytest.raises(ValueError):
+        kernels.scalar_mul_window(k.cpu(), p, 2)
+    with pytest.raises(ValueError):
+        kernels.shared_scalar_mul(k, p)  # eight scalars, not one
+    with pytest.raises(ValueError):
+        kernels.shared_scalar_mul(k[:, :1], tuple(c[:, ::2] for c in operands(16, card, 7)[0]))

@@ -30,7 +30,7 @@ def test_the_port_has_the_modules_of_the_slice():
             "ops/sc.py", "ops/kernels.py", "ops/curve.py", "ops/fixed_base.py", "ops/bsgs.py",
             "ops/keccak_batch.py", "ops/msm.py", "utils/native.py", "crypto/range_proof.py",
             "crypto/range_proof_vec.py", "crypto/l2_range_proof.py", "fl/params.py",
-            "fl/wire.py"}
+            "fl/wire.py", "crypto/compressed_rand_proof.py"}
     assert want <= have
 
 
@@ -51,7 +51,8 @@ def test_kernel_sources_are_in_the_package():
     assert set(kernels.LAUNCHES) == set(kernels.KERNEL_SOURCES)
     assert set(kernels._ARGTYPES) == {kernels._ENTRY_POINTS.get(name, name)
                                       for name in kernels.KERNEL_SOURCES}
-    assert {"sc_mul", "sc_add", "sc_sub", "scalar_mul"} <= set(kernels.KERNEL_SOURCES)
+    assert {"sc_mul", "sc_add", "sc_sub", "scalar_mul", "shared_scalar_mul",
+            "scalar_mul_window"} <= set(kernels.KERNEL_SOURCES)
     for name in kernels.KERNEL_SOURCES:  # each kernel has its plain version beside it
         assert callable(getattr(kernels, name)) and callable(getattr(kernels, name + "_ref"))
 
