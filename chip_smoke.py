@@ -21,9 +21,12 @@ Phases:
            shared_scalar_mul, scalar_mul_window against their plain torch
            versions on the card, at the lane counts the paths use and at
            N = 1 and 77, random and edge inputs, canonical limbs bit-equal
-           (the ladders, the MSMs: canonical encodings of the results);
+           (the ladders, the MSMs: canonical encodings of the results; their
+           scalars include 2^256 - 1 and those whose signed digits are all
+           the lowest, at radix 16 and at the MSM's window);
            times at N = 50000; the MSMs also held equal and timed, with
-           their plain versions, at the l2 path's shapes; shared_scalar_mul
+           their plain versions, at the l2 path's shapes, with the window c
+           and the slices each ran at; shared_scalar_mul
            at N = 50000 for k = 0, 1, l-1 and scalars of low, high and
            random Hamming weight, each timed; scalar_mul_window at W = 2 and
            4; the point_add and sc_add chains of tree_sum and sc.sum_reduce
@@ -121,9 +124,10 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 2
 
 # 32-bit multiply-adds per lane, counted for the cheapest layout the card
-# allows and not for the kernels' own 16x16-bit limbs (256 per product): with
-# 8 limbs of 32 bits a 255-bit product is 64 wide multiplies, each a low and a
-# high 32-bit multiply-add, so 128, and a squaring is 36 wide multiplies, 72.
+# allows (scalar_mul and the MSMs run on it; the other kernels keep 16-bit
+# limbs, 256 per product): with 8 limbs of 32 bits a 255-bit product is 64
+# wide multiplies, each a low and a high 32-bit multiply-add, so 128, and a
+# squaring is 36 wide multiplies, 72.
 # Field operations counted from the formulas in csrc/ge25519.cuh:
 #   add        9 products
 #   double     4 products + 4 squarings
@@ -136,10 +140,12 @@ INT32_OPS_PER_S = 67e12 / 2
 # 256 multiply-adds. sc_add and sc_sub have no multiply: 8 word adds or
 # subtracts with carry, 8 more for the correction by l and 8 selects, counted
 # as 24 operations. scalar_mul is counted for the cheapest schedule of the same
-# function, a fixed 4-bit window: 252 doublings, 64 adds and 14 adds for the
-# table of 16 multiples, 291 456 multiply-adds; the ladder as written does 256
-# doublings and 256 adds (499 712 at the same 128 / 72 a product / squaring).
-# scalar_mul_window computes the same function and has the same bound.
+# function for a secret k (least_ladder_madds): signed 5-bit windows, a table
+# of P..16P (8 doublings, 7 adds), then 51 windows of 5 doublings (T left out
+# of all but the last: 3 products and 4 squarings) and one add, 251 104
+# multiply-adds; the kernel's signed radix-16 ladder does 260 608 (4-bit
+# windows), a one-bit ladder 499 712. scalar_mul_window computes the same
+# function and has the same bound.
 # shared_scalar_mul's least work depends on its one scalar, which is known: its
 # bound is computed per call (shared_bound_ms) from the cheapest fixed-window or
 # NAF schedule for the scalar timed, not from the kernel's own 256 doublings and
@@ -150,6 +156,24 @@ MUL, SQR = 128, 72
 LIMBS = 16 * 4
 POINT_ADD_MADDS = 9 * MUL
 POINT_DOUBLE_MADDS = 4 * MUL + 4 * SQR
+POINT_DOUBLE_NO_T_MADDS = 3 * MUL + 4 * SQR  # a doubling followed by a doubling
+
+
+def least_ladder_madds() -> int:
+    """Multiply-adds of the cheapest signed-window schedule for k * P with
+    k secret (every window added, whatever its digit): at window w, a table
+    of 2^(w-1) multiples (half of them doublings, the rest adds of P), then
+    ceil(257 / w) - 1 windows of w doublings (T only on the last) and one
+    add, the top digit a table select."""
+    costs = []
+    for w in range(2, 9):
+        half = 1 << (w - 1)
+        table = half // 2 * POINT_DOUBLE_MADDS + (half // 2 - 1) * POINT_ADD_MADDS
+        window = (w - 1) * POINT_DOUBLE_NO_T_MADDS + POINT_DOUBLE_MADDS + POINT_ADD_MADDS
+        costs.append(table + (-(-257 // w) - 1) * window)
+    return min(costs)
+
+
 KERNEL_FACTS = {
     "point_add": dict(
         source="rofl_tpu_torch/csrc/point_add.cu", replaces="rofl_tpu/ops/kernels.py:428",
@@ -177,7 +201,7 @@ KERNEL_FACTS = {
         madds=12, bytes=3 * LIMBS),
     "scalar_mul": dict(
         source="rofl_tpu_torch/csrc/scalar_mul.cu", replaces="rofl_tpu/ops/kernels.py:475",
-        madds=252 * POINT_DOUBLE_MADDS + (64 + 14) * POINT_ADD_MADDS, bytes=9 * LIMBS),
+        madds=least_ladder_madds(), bytes=9 * LIMBS),
     # The MSMs' bound is computed per shape by msm_bound_ms: 320 bytes a term
     # (a point and a 64-byte scalar), Pippenger's additions at its best window.
     "msm_flat": dict(
@@ -192,7 +216,7 @@ KERNEL_FACTS = {
     "scalar_mul_window": dict(
         source="rofl_tpu_torch/csrc/scalar_mul_window.cu",
         replaces="rofl_tpu/ops/kernels.py:493",
-        madds=252 * POINT_DOUBLE_MADDS + (64 + 14) * POINT_ADD_MADDS, bytes=9 * LIMBS),
+        madds=least_ladder_madds(), bytes=9 * LIMBS),
 }
 NEW_KERNELS = ("sc_mul", "sc_add", "sc_sub", "scalar_mul")
 # Lane counts the round gives the kernels (fixed-base tables: 1 and 8192;
@@ -242,9 +266,12 @@ def device_ms(fn, reps: int = 20, rounds: int = 5) -> float:
 def msm_bound_ms(n: int, group: int) -> tuple[float, str]:
     """Least time for n terms in groups of `group`: the bytes (each term read
     once) over the memory rate, or Pippenger's point additions at its best
-    window c, ceil(256 / c) * (group + 2^(c+1)) a group, at the 1152
-    multiply-adds of an addition, over the int32 rate."""
-    adds = min(math.ceil(256 / c) * (group + 2 ** (c + 1)) for c in range(1, 25))
+    window c, ceil(257 / c) * (group + 2^c) a group with signed digits
+    (2^(c-1) buckets; fewer than unsigned digits' ceil(256 / c) *
+    (group + 2^(c+1))), at the 1152 multiply-adds of an addition, over the
+    int32 rate."""
+    adds = min(min(math.ceil(257 / c) * (group + 2 ** c),
+                   math.ceil(256 / c) * (group + 2 ** (c + 1))) for c in range(1, 25))
     t_bytes = n * KERNEL_FACTS["msm_flat"]["bytes"] / HBM_BYTES_PER_S
     t_ops = (n // group) * adds * POINT_ADD_MADDS * 2 / INT32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -406,19 +433,34 @@ def test_scalars(n: int, rng: np.random.Generator):
     return a, b
 
 
+def lowest_digits(c: int) -> int:
+    """The scalar whose signed c-bit digits below the top one are all
+    -2^(c-1) (every radix-16 digit -8 at c = 4): 2^256 less the recoding's
+    offset (csrc/fe25519_32.cuh recode_offset)."""
+    return 2**256 - sum((1 << (c - 1)) << (c * i) for i in range(-(-257 // c) - 1))
+
+
+# Not reduced mod l: the ladder and the MSMs take all 256 bits of k.
+EDGE_LADDER_SCALARS = (0, 1, SS.L - 1, 2**256 - 1, lowest_digits(4),
+                       lowest_digits(kernels.MSM_WINDOW))
+
+
 def test_ladder_operands(n: int, rng: np.random.Generator):
-    """Scalars and points for scalar_mul: random ones, and k = 0, 1, l-1
-    against a random point, the basepoint and the identity."""
+    """Scalars and points for scalar_mul and the MSMs: random ones, and
+    EDGE_LADDER_SCALARS against a random point, the basepoint and the
+    identity."""
     p, _ = test_points(n, rng)
     k, _ = test_scalars(n, rng)
     if n >= 32:
-        edge_k = fe.to_tensor(sc.pack_scalars([0, 1, SS.L - 1]), DEVICE)
-        fixed = {0: None, 17: curve.basepoint((1,), DEVICE), 20: curve.identity((1,), DEVICE)}
+        edge_k = fe.to_tensor(fe.pack_scalars(EDGE_LADDER_SCALARS), DEVICE)
+        e = len(EDGE_LADDER_SCALARS)
+        fixed = {0: None, 17: curve.basepoint((1,), DEVICE),
+                 17 + e: curve.identity((1,), DEVICE)}
         for first, point in fixed.items():
-            k[:, first:first + 3] = edge_k
+            k[:, first:first + e] = edge_k
             if point is not None:
                 for c, v in zip(p, point):
-                    c[:, first:first + 3] = v
+                    c[:, first:first + e] = v
     return k, p
 
 
@@ -495,10 +537,11 @@ def phase_kernels() -> dict:
         got = kernels.scalar_mul(k, p)
         want, plain_seconds = synced(lambda: kernels.scalar_mul_ref(k, p))
         hold("scalar_mul", (kernels.compress(got),), (kernels.compress(want),))
-        if n <= D:  # one scalar for every point
-            k1 = k[:, n // 2:n // 2 + 1].contiguous()
-            hold("scalar_mul", (kernels.compress(kernels.scalar_mul(k1, p)),),
-                 (kernels.compress(kernels.scalar_mul_ref(k1, p)),))
+        if n <= D:  # one scalar for every point: a random one, and the all -8 one
+            for b in (n // 2, 4) if n >= 32 else (n // 2,):
+                k1 = k[:, b:b + 1].contiguous()
+                hold("scalar_mul", (kernels.compress(kernels.scalar_mul(k1, p)),),
+                     (kernels.compress(kernels.scalar_mul_ref(k1, p)),))
         if n == D:
             timed("scalar_mul", n, lambda: kernels.scalar_mul(k, p),
                   plain_ms=1e3 * plain_seconds, reps=3, rounds=3)
@@ -519,17 +562,24 @@ def phase_kernels() -> dict:
 
 # The MSMs against their plain version (a ladder per lane, then the halving
 # sums): flat at N = 1 and 77, in 16 groups of 2, 64 and 4096; the first
-# lanes hold k = 0, 1, l-1 on a random point, the basepoint and the identity;
-# one broadcast scalar at 77 lanes and at 16 groups of 64. Then held equal
-# and timed, kernel and plain version on the same inputs, at the l2 path's
-# shapes, where the kernel runs several lanes a thread: the provers' S sum
-# (16 groups of 65536 terms), the batched square-rand verify (300 000 terms)
-# and the range proofs' combined verify (131 618 terms).
+# lanes hold EDGE_LADDER_SCALARS on a random point, the basepoint and the
+# identity; one broadcast scalar at 77 lanes and, the all -8 one, at 16
+# groups of 64. Then held equal and timed, kernel and plain version on the
+# same inputs, at the l2 path's shapes, where the kernel cuts each group
+# into slices: the provers' S sum (16 groups of 65536 terms), the batched
+# square-rand verify (300 000 terms) and the range proofs' combined verify
+# (131 618 terms).
 MSM_FLAT_LANES = (1, 77)
 MSM_GROUPS = (2, 64, 4096)
 MSM_N_GROUPS = 16
 MSM_PATH_SHAPES = {"msm_groups": (16 << 16, 1 << 16), "msm_flat": (300_000, 300_000)}
 MSM_VERIFY_TERMS = 131_618
+
+
+def msm_plan(n_groups: int, group: int) -> int:
+    """The slices a group the MSM wrapper picks on this card."""
+    return kernels.msm_slices(n_groups, group, kernels.MSM_DIGITS,
+                              kernels.msm_blocks_per_wave(torch.device(DEVICE)))
 
 
 def check_msm(records: dict, hold, rng: np.random.Generator) -> None:
@@ -558,7 +608,7 @@ def check_msm(records: dict, hold, rng: np.random.Generator) -> None:
              encodings(kernels.msm_groups_ref(k, p, group)))
         records["msm_groups"]["checked_lanes"].append([MSM_N_GROUPS, group])
         if group == 64:
-            k1 = k[:, 5:6].contiguous()
+            k1 = k[:, 4:5].contiguous()
             hold("msm_groups", encodings(kernels.msm_groups(k1, p, group)),
                  encodings(kernels.msm_groups_ref(k1, p, group)))
 
@@ -570,6 +620,8 @@ def check_msm(records: dict, hold, rng: np.random.Generator) -> None:
         hold(name, encodings(got), encodings(want))
         rec["checked_lanes"].append(n if name == "msm_flat" else [n // group, group])
         rec["n"], rec["group"] = n, group
+        rec["window"] = kernels.MSM_WINDOW
+        rec["slices"] = msm_plan(n // group, group)
         rec["ms"] = device_ms(lambda: call(name, k, p, group)[0], reps=2, rounds=3)
         rec["plain_ms"] = 1e3 * plain_seconds
         rec["bound_ms"], rec["bound_by"] = msm_bound_ms(n, group)
@@ -581,6 +633,7 @@ def check_msm(records: dict, hold, rng: np.random.Generator) -> None:
             want, plain_seconds = synced(plain)
             hold(name, encodings(got), encodings(want))
             rec["checked_lanes"].append(MSM_VERIFY_TERMS)
+            rec["slices_at_131618"] = msm_plan(1, MSM_VERIFY_TERMS)
             rec["ms_at_131618"] = device_ms(lambda: kernels.msm_flat(kv, pv), reps=2, rounds=3)
             rec["plain_ms_at_131618"] = 1e3 * plain_seconds
             rec["bound_ms_at_131618"] = msm_bound_ms(MSM_VERIFY_TERMS, MSM_VERIFY_TERMS)[0]
@@ -640,7 +693,7 @@ def check_shared_and_window(records: dict, hold, rng: np.random.Generator) -> No
         got = kernels.scalar_mul_window(k, p, w)
         want, plain_seconds = synced(lambda: kernels.scalar_mul_window_ref(k, p, w))
         hold("scalar_mul_window", encodings(got), encodings(want))
-        hold("scalar_mul_window", encodings(got), ladder)  # the one-bit ladder's function
+        hold("scalar_mul_window", encodings(got), ladder)  # scalar_mul's function
         hold("scalar_mul_window", encodings(kernels.scalar_mul_window(kb, pb, w)),
              encodings(kernels.scalar_mul_window_ref(kb, pb, w)))
         ms = device_ms(lambda: kernels.scalar_mul_window(k, p, w), reps=3, rounds=3)
@@ -1342,8 +1395,9 @@ def main() -> None:
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "match",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "n",
             "checked_lanes")
-    extra_keys = ("group", "ms_at_131618", "plain_ms_at_131618", "bound_ms_at_131618",
-                  "scalars", "windows", "scalar_mul_ms_same_inputs")
+    extra_keys = ("group", "window", "slices", "ms_at_131618", "plain_ms_at_131618",
+                  "bound_ms_at_131618", "slices_at_131618", "ms_at_4n", "scalars", "windows",
+                  "scalar_mul_ms_same_inputs")
     rows = []
     for name, rec in records.items():
         by_path = {"round": round_launches[name], "sigma": sigma_launches[name],

@@ -1,9 +1,10 @@
 // Ristretto255 point arithmetic for one lane per CUDA thread, on top of
 // fe25519.cuh: extended twisted-Edwards coordinates (X:Y:Z:T), a = -1.
 // Same formulas as the TPU package's p_add / p_double / _compress_kernel /
-// _decompress_kernel / _scalar_mul_kernel / _make_smul_window_kernel /
-// _shared_mul_kernel (rofl_tpu/ops/kernels.py) and the plain versions in
-// rofl_tpu_torch/ops/kernels.py.
+// _decompress_kernel / _make_smul_window_kernel / _shared_mul_kernel
+// (rofl_tpu/ops/kernels.py) and the plain versions in
+// rofl_tpu_torch/ops/kernels.py. csrc/msm.cu and csrc/scalar_mul.cu use the
+// same formulas on 32-bit limbs (fe25519_32.cuh).
 #pragma once
 
 #include "fe25519.cuh"
@@ -83,20 +84,11 @@ ROFL_HD ge ge_select(bool cond, const ge &p_true, const ge &p_false) {
   return r;
 }
 
-// One step of the double-and-add ladder, most significant bit first:
-// acc = 2 acc, then acc + p where the bit is set. The add is always computed
-// and the result selected, so neither control flow nor the sequence of
-// operations depends on the (possibly secret) bit.
-ROFL_HD ge ge_ladder_step(const ge &acc, const ge &p, bool bit) {
-  ge doubled = ge_double(acc);
-  return ge_select(bit, ge_add(doubled, p), doubled);
-}
-
 // A block's points in shared memory, limb-major over its THREADS threads:
 // sp[word][thread] with words x0..x15, y0..y15, z0..z15, t0..t15, so a warp's
-// reads of one word fall into 32 different banks. The ladders of
-// csrc/scalar_mul.cu and csrc/shared_scalar_mul.cu keep P there, which leaves
-// registers for the accumulator and the formulas' temporaries.
+// reads of one word fall into 32 different banks. The ladder of
+// csrc/shared_scalar_mul.cu keeps P there, which leaves registers for the
+// accumulator and the formulas' temporaries.
 template <int THREADS>
 ROFL_HD void ge_store_columns(uint32_t (*sp)[THREADS], int tid, const ge &p) {
   ROFL_UNROLL
@@ -205,60 +197,6 @@ ROFL_HD ge ge_scalar_mul_window(const int32_t *k, int64_t k_lanes, int64_t k_lan
     ROFL_NO_UNROLL
     for (int i = 0; i < W; ++i) acc = ge_double(acc);
     acc = ge_add(acc, ge_window_lookup<W>(table, n, lane, digit));
-  }
-  return acc;
-}
-
-// The lanes one thread of the MSM kernel (csrc/msm.cu) owns. Each group of
-// `group` lanes is cut into runs of at most threads * per_thread lanes, one
-// run a block, blocks_per_group blocks a group; thread tid of a block owns
-// the lanes first, first + threads, ... of its run, `count` of them (0 for
-// a thread past the end of a short run).
-struct msm_lanes {
-  int64_t first;
-  int count;
-};
-
-ROFL_HD msm_lanes msm_thread_lanes(int64_t block, int tid, int threads, int group,
-                                   int per_thread, int blocks_per_group) {
-  const int64_t run = (block % blocks_per_group) * threads * (int64_t)per_thread;
-  const int64_t left = (int64_t)group - run - tid;  // lanes from this thread's first on
-  msm_lanes r;
-  r.first = (block / blocks_per_group) * (int64_t)group + run + tid;
-  const int64_t count = left <= 0 ? 0 : (left + threads - 1) / threads;
-  r.count = count < per_thread ? (int)count : per_thread;
-  return r;
-}
-
-// sum_i k_i * P_i over the lanes first, first + stride, ... (count of
-// them) of (16, n) point coordinates and (16, k_lanes) scalars (k_lanes n,
-// or 1 for one scalar for every lane): Straus with one-bit windows, 256
-// steps from the top bit, acc = 2 acc, then acc = bit ? acc + P : acc for
-// each lane. The add is always computed and selected. `add` and `dbl` are
-// the point addition and doubling to use (ge_add and ge_double, or calls of
-// them: see csrc/msm.cu).
-template <class Add, class Double>
-ROFL_HD ge ge_msm_lanes(const int32_t *k, int k_lanes, const int32_t *px, const int32_t *py,
-                        const int32_t *pz, const int32_t *pt, int64_t n, int64_t first,
-                        int stride, int count, Add add, Double dbl) {
-  const int64_t k_step = k_lanes == 1 ? 0 : 1;
-  ge acc = ge_identity();
-  ROFL_NO_UNROLL
-  for (int i = 255; i >= 0; --i) {
-    acc = dbl(acc);
-    const int limb = i >> 4;
-    const int bit = i & 15;
-    ROFL_NO_UNROLL
-    for (int s = 0; s < count; ++s) {
-      const int64_t lane = first + (int64_t)s * stride;
-      const uint32_t word = (uint32_t)k[limb * (int64_t)k_lanes + lane * k_step];
-      ge p;
-      p.x = fe_load(px, n, lane);
-      p.y = fe_load(py, n, lane);
-      p.z = fe_load(pz, n, lane);
-      p.t = fe_load(pt, n, lane);
-      acc = ge_select(((word >> bit) & 1u) != 0, add(acc, p), acc);
-    }
   }
   return acc;
 }

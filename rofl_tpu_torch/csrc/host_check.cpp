@@ -3,6 +3,10 @@
 // without a card can hold it against the spec. Build:
 //   g++ -O1 -shared -fPIC -x c++ -o libhost_check.so host_check.cpp
 // Arrays are (16, n) int32, limb-major, exactly as the kernels take them.
+#include <cstddef>
+#include <vector>
+
+#include "fe25519_32.cuh"
 #include "ge25519.cuh"
 #include "sc25519.cuh"
 
@@ -121,21 +125,19 @@ void host_sc_op(int op, const int32_t *a, int a_lanes, const int32_t *b, int b_l
   }
 }
 
-// The ladder of csrc/scalar_mul.cu: 256 steps from bit 255 down to bit 0 of
-// the scalar's 16 limbs. k_lanes is n or 1.
+// csrc/scalar_mul.cu with `threads` threads a block (k_lanes n or 1): each
+// thread's ladder_scalar_mul with its table in the block's shared-memory
+// array, [entry][word][thread], as on the card.
 void host_scalar_mul(const int32_t *k, int k_lanes, const int32_t *px, const int32_t *py,
                      const int32_t *pz, const int32_t *pt, int32_t *ox, int32_t *oy,
-                     int32_t *oz, int32_t *ot, int n) {
+                     int32_t *oz, int32_t *ot, int n, int threads) {
+  std::vector<uint32_t> sm((std::size_t)rofl32::LADDER_ENTRIES * rofl32::POINT_WORDS * threads);
   for (int lane = 0; lane < n; ++lane) {
-    ge p = load_point(px, py, pz, pt, n, lane);
-    ge acc = ge_identity();
-    for (int limb = NLIMB - 1; limb >= 0; --limb) {
-      uint32_t word = (uint32_t)k[(int64_t)limb * k_lanes + (k_lanes == 1 ? 0 : lane)];
-      for (int bit = 15; bit >= 0; --bit) {
-        acc = ge_ladder_step(acc, p, ((word >> bit) & 1u) != 0);
-      }
-    }
-    store_point(ox, oy, oz, ot, n, lane, acc);
+    const int tid = lane % threads;
+    rofl32::ge acc = rofl32::ladder_scalar_mul(k, k_lanes, k_lanes == 1 ? 0 : lane, sm.data(),
+                                               threads, tid,
+                                               rofl32::ge_load16(px, py, pz, pt, n, lane));
+    rofl32::ge_store16(ox, oy, oz, ot, n, lane, acc);
   }
 }
 
@@ -176,28 +178,75 @@ int host_scalar_mul_window(int window, const int32_t *k, int k_lanes, const int3
   return 0;
 }
 
-// The grid of csrc/msm.cu with `threads` threads a block, run block by
-// block and thread by thread: each thread's ge_msm_lanes, then the block's
-// halving tree (threads a power of two). Writes the partial sums, (16,
-// n_out) with n_out = (n / group) * ceil(group / (threads * per_thread)).
+// op on the 32-bit field of fe25519_32.cuh, operands and result in the
+// (16, n) storage: 0 add, 1 sub, 2 mul, 3 sqr(a), 4 neg(a), 5 a as loaded
+// and stored (the packing of two 16-bit limbs a word).
+void host_fe32_op(int op, const int32_t *a, const int32_t *b, int32_t *out, int n) {
+  namespace f = rofl32;
+  for (int lane = 0; lane < n; ++lane) {
+    f::fe x = f::fe_load16(a, n, lane), y = f::fe_load16(b, n, lane), r = x;
+    switch (op) {
+      case 0: r = f::fe_add(x, y); break;
+      case 1: r = f::fe_sub(x, y); break;
+      case 2: r = f::fe_mul(x, y); break;
+      case 3: r = f::fe_sqr(x); break;
+      case 4: r = f::fe_neg(x); break;
+    }
+    f::fe_store16(out, n, lane, r);
+  }
+}
+
+// The recoding of csrc/msm.cu's first launch: the ceil(257 / MSM_C) signed
+// digits of each of the n scalars of (16, n) k, digit i of scalar j at
+// out[i * n + j].
+void host_recode(const int32_t *k, int8_t *out, int n) {
+  for (int lane = 0; lane < n; ++lane) {
+    uint32_t kw[rofl32::NW];
+    rofl32::scalar_load16(k, n, lane, kw);
+    rofl32::recode_signed<rofl32::MSM_C>(kw, out + lane, n);
+  }
+}
+
+// csrc/msm.cu's grid, the three launches with `threads` threads a block (a
+// power of two) run block by block and, between the barriers, thread by
+// thread: the n / group sums, (16, n / group) x4.
 void host_msm(const int32_t *k, int k_lanes, const int32_t *px, const int32_t *py,
-              const int32_t *pz, const int32_t *pt, int n, int group, int per_thread,
-              int threads, int32_t *ox, int32_t *oy, int32_t *oz, int32_t *ot) {
-  const int lanes_per_block = threads * per_thread;
-  const int blocks_per_group = (group + lanes_per_block - 1) / lanes_per_block;
-  const int n_out = (n / group) * blocks_per_group;
-  ge red[1024];
-  for (int block = 0; block < n_out; ++block) {
+              const int32_t *pz, const int32_t *pt, int n, int group, int slices, int threads,
+              int32_t *ox, int32_t *oy, int32_t *oz, int32_t *ot) {
+  namespace f = rofl32;
+  constexpr int C = f::MSM_C;
+  constexpr int W = f::digits<C>::count;
+  const int n_groups = n / group;
+  std::vector<int8_t> digit_rows((std::size_t)W * k_lanes);
+  for (int lane = 0; lane < k_lanes; ++lane) {
+    uint32_t kw[f::NW];
+    f::scalar_load16(k, k_lanes, lane, kw);
+    f::recode_signed<C>(kw, digit_rows.data() + lane, k_lanes);
+  }
+  std::vector<uint32_t> partials((std::size_t)n_groups * slices * W * f::POINT_WORDS);
+  std::vector<uint32_t> sm((std::size_t)f::digits<C>::half * f::POINT_WORDS * threads);
+  for (int64_t block = 0; block < (int64_t)n_groups * slices * W; ++block) {
+    const f::msm_block b = f::msm_block_of(block, W, slices, group);
     for (int tid = 0; tid < threads; ++tid) {
-      msm_lanes mine = msm_thread_lanes(block, tid, threads, group, per_thread, blocks_per_group);
-      red[tid] = ge_msm_lanes(k, k_lanes, px, py, pz, pt, n, mine.first, threads, mine.count,
-                              [](const ge &a, const ge &b) { return ge_add(a, b); },
-                              [](const ge &a) { return ge_double(a); });
+      f::msm_thread_terms<C>(sm.data(), threads, tid,
+                             digit_rows.data() + (int64_t)b.window * k_lanes,
+                             k_lanes == 1 ? 0 : 1, px, py, pz, pt, n, b.first, b.last);
     }
     for (int stride = threads / 2; stride > 0; stride >>= 1) {
-      for (int tid = 0; tid < stride; ++tid) red[tid] = ge_add(red[tid], red[tid + stride]);
+      for (int tid = 0; tid < threads; ++tid) {
+        f::msm_tree_level<C>(sm.data(), threads, tid, stride);
+      }
     }
-    store_point(ox, oy, oz, ot, n_out, block, red[0]);
+    f::ge_put_words(partials.data() + block * f::POINT_WORDS,
+                    f::msm_running_sum<C>(sm.data(), threads));
+  }
+  std::vector<uint32_t> sums((std::size_t)W * f::POINT_WORDS);
+  for (int g = 0; g < n_groups; ++g) {
+    for (int w = 0; w < W; ++w) {
+      f::ge_put_words(sums.data() + w * f::POINT_WORDS,
+                      f::msm_window_sum(partials.data(), g, w, W, slices));
+    }
+    f::ge_store16(ox, oy, oz, ot, n_groups, g, f::msm_horner<C>(sums.data()));
   }
 }
 

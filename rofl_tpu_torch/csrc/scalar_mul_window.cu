@@ -3,10 +3,11 @@
 //
 // Replaces the TPU kernel rofl_tpu/ops/kernels.py _make_smul_window_kernel,
 // the variant of scalar_mul that ROFL_SMUL_W > 1 selects there. The same
-// function as csrc/scalar_mul.cu; the default paths of both packages run the
-// one-bit ladder. Work per lane: 2^W - 2 point operations for the table of
-// multiples, then 256 doublings and 256 / W adds (W = 4: 14 + 256 + 64
-// against the ladder's 256 + 256), bound by the integer units on an H100.
+// function as csrc/scalar_mul.cu; the default paths of both packages run
+// scalar_mul (the TPU's one-bit ladder, the port's signed radix-16 one).
+// Work per lane: 2^W - 2 point operations for the table of multiples, then
+// 256 doublings and 256 / W adds (W = 4: 14 + 256 + 64 against the one-bit
+// ladder's 256 + 256), bound by the integer units on an H100.
 //
 // Design. The 2^W multiples of a lane (4 KB at W = 4) fit neither in
 // registers nor, at 64 threads a block, in shared memory (64 x 4 KB = 256 KB

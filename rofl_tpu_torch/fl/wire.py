@@ -15,7 +15,12 @@ every element of a repeated field is written. A ``float`` is fixed32, the
 little-endian float32, and reads back as that float32's value (0.7 reads
 back as 0.699999988...), as from the protobuf runtime. The reader takes
 fields in any order, keeps the last value of a singular field and skips
-fields it does not know.
+fields it does not know, or whose wire type is not the field's, groups
+(wire types 3 and 4, nested, each closed by the end-group of its own field
+number) among them. It raises where the protobuf runtime raises: on a
+truncated field, a stray or mismatched end-group, an unterminated group,
+groups nested deeper than 100, wire types 6 and 7, and field number 0 or
+above 2^29 - 1.
 """
 
 from __future__ import annotations
@@ -24,7 +29,9 @@ import struct
 from dataclasses import dataclass, field, fields
 from typing import ClassVar
 
-_VARINT, _I64, _LEN, _I32 = 0, 1, 2, 5
+_VARINT, _I64, _LEN, _START_GROUP, _END_GROUP, _I32 = 0, 1, 2, 3, 4, 5
+_MAX_FIELD = (1 << 29) - 1
+_MAX_DEPTH = 100  # nesting limit of the protobuf runtime and of prost
 # What a field holds → its wire type.
 BYTES, REPEATED_BYTES, INT32, FLOAT = "bytes", "repeated bytes", "int32", "float"
 _WIRE_TYPE = {BYTES: _LEN, REPEATED_BYTES: _LEN, INT32: _VARINT, FLOAT: _I32}
@@ -94,22 +101,8 @@ class _Message:
         by_number = {number: (name, kind) for name, number, kind in cls.SCHEMA}
         i = 0
         while i < len(data):
-            key, i = decode_varint(data, i)
-            number, wire_type = key >> 3, key & 7
-            if wire_type == _VARINT:
-                value, i = decode_varint(data, i)
-            elif wire_type == _LEN:
-                length, i = decode_varint(data, i)
-                if i + length > len(data):
-                    raise ValueError("truncated length-delimited field")
-                value, i = bytes(data[i:i + length]), i + length
-            elif wire_type in (_I64, _I32):
-                width = 8 if wire_type == _I64 else 4
-                if i + width > len(data):
-                    raise ValueError("truncated fixed-width field")
-                value, i = bytes(data[i:i + width]), i + width
-            else:
-                raise ValueError(f"unsupported wire type {wire_type}")
+            number, wire_type, i = _read_key(data, i)
+            value, i = _read_value(data, i, number, wire_type, 0)
             name, kind = by_number.get(number, (None, None))
             if name is None or _WIRE_TYPE[kind] != wire_type:
                 continue
@@ -122,6 +115,48 @@ class _Message:
             else:
                 setattr(msg, name, value)
         return msg
+
+
+def _read_key(data: bytes, i: int) -> tuple[int, int, int]:
+    """(field number, wire type, next offset)."""
+    key, i = decode_varint(data, i)
+    number = key >> 3
+    if number == 0 or number > _MAX_FIELD:
+        raise ValueError(f"invalid field number {number}")
+    return number, key & 7, i
+
+
+def _read_value(data: bytes, i: int, number: int, wire_type: int, depth: int):
+    """(value, next offset) of the field whose key ends at i: an int, the
+    bytes of a length-delimited or fixed-width field, or None for a group,
+    skipped up to its end-group."""
+    if wire_type == _VARINT:
+        return decode_varint(data, i)
+    if wire_type == _LEN:
+        length, i = decode_varint(data, i)
+        if i + length > len(data):
+            raise ValueError("truncated length-delimited field")
+        return bytes(data[i:i + length]), i + length
+    if wire_type in (_I64, _I32):
+        width = 8 if wire_type == _I64 else 4
+        if i + width > len(data):
+            raise ValueError("truncated fixed-width field")
+        return bytes(data[i:i + width]), i + width
+    if wire_type == _START_GROUP:
+        if depth == _MAX_DEPTH:
+            raise ValueError(f"groups nested deeper than {_MAX_DEPTH}")
+        while True:
+            if i >= len(data):
+                raise ValueError(f"unterminated group of field {number}")
+            inner, inner_type, i = _read_key(data, i)
+            if inner_type == _END_GROUP:
+                if inner != number:
+                    raise ValueError(f"end-group of field {inner} closes field {number}")
+                return None, i
+            _, i = _read_value(data, i, inner, inner_type, depth + 1)
+    if wire_type == _END_GROUP:
+        raise ValueError(f"end-group of field {number} outside a group")
+    raise ValueError(f"unsupported wire type {wire_type}")
 
 
 def _schema(cls):

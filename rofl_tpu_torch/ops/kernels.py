@@ -24,13 +24,15 @@ apart):
 
 No default path of either package calls the last two: the JAX package calls
 ``shared_scalar_mul`` nowhere, and runs its windowed ladder only where the
-environment asks for it; the port's paths keep the one-bit ``scalar_mul``
-and have no switch for the window.
+environment asks for it; the port's paths call ``scalar_mul``, the
+counterpart of the default W = 1 body (on the card a signed radix-16
+ladder, csrc/scalar_mul.cu), and have no switch for the window.
 
-Each is CUDA C++ for sm_90a, one lane per thread (the MSM: a few lanes a
-thread and a sum a block), sharing the field, point and
-scalar device headers ``csrc/fe25519.cuh``, ``csrc/ge25519.cuh`` and
-``csrc/sc25519.cuh``. The sources have
+Each is CUDA C++ for sm_90a, one lane per thread (the MSM: a Pippenger
+over a block's terms a thread, see ``csrc/msm.cu``), sharing the field,
+point and scalar device headers ``csrc/fe25519.cuh``, ``csrc/ge25519.cuh``
+and ``csrc/sc25519.cuh`` (16-bit limbs), and ``csrc/fe25519_32.cuh`` (32-bit
+limbs, under ``scalar_mul`` and the MSMs). The sources have
 a plain C interface and are compiled by ``nvcc`` at first use, one process per
 source, all started together, into ``build/rofl_tpu_torch/`` beside the
 package, and loaded with ``ctypes``. A build or launch failure raises.
@@ -80,7 +82,7 @@ KERNEL_SOURCES = {
     "shared_scalar_mul": "shared_scalar_mul.cu",
     "scalar_mul_window": "scalar_mul_window.cu",
 }
-_HEADERS = ("fe25519.cuh", "ge25519.cuh", "sc25519.cuh")
+_HEADERS = ("fe25519.cuh", "ge25519.cuh", "sc25519.cuh", "fe25519_32.cuh")
 
 # Launch counts: a wrapper adds one where it launches its kernel, nowhere else.
 LAUNCHES = {name: 0 for name in KERNEL_SOURCES}
@@ -97,13 +99,15 @@ _ARGTYPES = {
     "sc_add": [_P, _I, _P, _I, _P, _I, _P],
     "sc_sub": [_P, _I, _P, _I, _P, _I, _P],
     "scalar_mul": [_P, _I] + [_P] * 8 + [_I, _P],
-    "msm_groups": [_P, _I] + [_P] * 4 + [_I] * 3 + [_P] * 4 + [_P],
+    "msm_groups": [_P, _I] + [_P] * 4 + [_I] * 3 + [_P] * 6 + [_P],
     "shared_scalar_mul": [_P] * 9 + [_I, _P],
     "scalar_mul_window": [_I, _P, _I] + [_P] * 9 + [_I, _P],
 }
 # The C function of a wrapper, where it is not rofl_<wrapper>: msm_flat is
 # msm_groups with one group.
 _ENTRY_POINTS = {"msm_flat": "msm_groups"}
+# C functions beside the kernels' entry points: name -> (source, argtypes).
+_HELPERS = {"msm_occupancy": ("msm.cu", [_P])}
 _functions: dict = {}
 # What nvcc printed for each kernel this process compiled (ptxas -v: registers,
 # shared memory, spills); empty for a library that was already built.
@@ -130,10 +134,21 @@ def _library_path(src: str) -> Path:
     return BUILD_DIR / f"{Path(src).stem}-{h.hexdigest()[:16]}.so"
 
 
+def nvcc_command(src: str, out: Path, defines: tuple = ()) -> list:
+    """The nvcc command that builds a source into the shared library `out`,
+    with `defines` as NAME=VALUE macros."""
+    return [
+        nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        "--split-compile=0", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+        *(f"-D{d}" for d in defines), "-o", str(out), str(CSRC_DIR / src),
+    ]
+
+
 def build_kernels() -> dict:
     """Compile (where not built yet) and load all the kernels; returns the C
-    functions by kernel name. One compiler a source, all at the same time."""
-    if len(_functions) == len(_ARGTYPES):
+    functions by kernel name. One compiler a source, all at the same time,
+    each splitting its device code over the cores (--split-compile=0)."""
+    if len(_functions) == len(_ARGTYPES) + len(_HELPERS):
         return _functions
     os.makedirs(BUILD_DIR, exist_ok=True)
     running = {}
@@ -142,13 +157,8 @@ def build_kernels() -> dict:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [
-            nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-            "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp),
-            str(CSRC_DIR / src),
-        ]
-        running[src] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, out)
+        running[src] = (subprocess.Popen(nvcc_command(src, tmp), stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True), tmp, out)
     failed = []
     for src, (proc, tmp, out) in running.items():
         log = proc.communicate()[0]
@@ -159,9 +169,10 @@ def build_kernels() -> dict:
             BUILD_LOGS.update({name: log for name, s in KERNEL_SOURCES.items() if s == src})
     if failed:
         raise RuntimeError("kernel build failed\n" + "\n".join(failed))
-    for name in _ARGTYPES:
-        fn = getattr(ctypes.CDLL(str(_library_path(KERNEL_SOURCES[name]))), f"rofl_{name}")
-        fn.argtypes = _ARGTYPES[name]
+    entries = {name: (KERNEL_SOURCES[name], argtypes) for name, argtypes in _ARGTYPES.items()}
+    for name, (src, argtypes) in {**entries, **_HELPERS}.items():
+        fn = getattr(ctypes.CDLL(str(_library_path(src))), f"rofl_{name}")
+        fn.argtypes = argtypes
         fn.restype = _I
         _functions[name] = fn
     return _functions
@@ -487,10 +498,11 @@ def scalar_mul_ref(k, p):
 def scalar_mul(k, p):
     """Batched variable-base scalar mul: scalars k (16, N) or one broadcast
     lane (16, 1), points p as an (x, y, z, t) tuple of (16, N) int32 limbs →
-    k * P as such a tuple. All 256 bits of k are walked, so k need not be
-    canonical. The kernel walks the bits from the top and the plain version
-    from the bottom: the results are the same group elements in different
-    projective representations (compare encodings or with ``curve.eq``)."""
+    k * P as such a tuple. All 256 bits of k count, so k need not be
+    canonical. The kernel runs signed radix-16 digits from the top and the
+    plain version the bits from the bottom: the results are the same group
+    elements in different projective representations (compare encodings or
+    with ``curve.eq``)."""
     if not use_kernels(p[0]):
         return scalar_mul_ref(k, p)
     device = p[0].device
@@ -508,8 +520,49 @@ def scalar_mul(k, p):
 # =============================================================================
 
 MSM_THREADS = 64  # csrc/msm.cu THREADS
-MSM_BLOCKS_PER_SM = 4  # about 250 registers a thread: 4 blocks of 64 threads fill an SM
-MSM_MAX_PER_THREAD = 8
+# csrc/fe25519_32.cuh MSM_C, the window c: signed digits in [-4, 4), 4
+# buckets a thread, 86 windows (tune_kernels.py measures the others).
+MSM_WINDOW = 3
+MSM_DIGITS = -(-257 // MSM_WINDOW)  # ceil(257 / c): the top one takes the last carry
+MSM_MIN_TERMS_PER_THREAD = 128
+# The block's tree and running sum, in terms of one thread's loop: about a
+# dozen additions against one addition and a bucket scan a term.
+MSM_TREE_TERMS = 16
+
+
+def msm_slices(n_groups: int, group: int, windows: int, blocks_per_wave: int) -> int:
+    """Blocks a group and window of the bucket launch, for `windows` windows.
+    Blocks run in waves of `blocks_per_wave` (the card's SMs times the blocks
+    an SM holds), so the time goes as the waves times a block's time, its
+    terms a thread plus the tree: the count of slices that makes that
+    product least, from 1 up to the count that leaves each thread
+    MSM_MIN_TERMS_PER_THREAD terms."""
+    blocks = n_groups * windows
+    most = max(1, group // (MSM_THREADS * MSM_MIN_TERMS_PER_THREAD))
+
+    def cost(slices):
+        waves = -(-blocks * slices // blocks_per_wave)
+        return waves * (-(-group // (slices * MSM_THREADS)) + MSM_TREE_TERMS)
+
+    return min(range(1, most + 1), key=cost)
+
+
+_msm_waves: dict = {}
+
+
+def msm_blocks_per_wave(device: torch.device) -> int:
+    """The card's SMs times the bucket blocks an SM holds
+    (rofl_msm_occupancy), once per device."""
+    key = torch.cuda.get_device_properties(device).name
+    if key not in _msm_waves:
+        per_sm = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = build_kernels()["msm_occupancy"](ctypes.byref(per_sm))
+        if err != 0 or per_sm.value < 1:
+            raise RuntimeError(f"msm: occupancy query failed with CUDA error {err}")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _msm_waves[key] = per_sm.value * sms
+    return _msm_waves[key]
 
 
 def halving_sums(p, group: int, add):
@@ -558,27 +611,25 @@ def _msm(wrapper: str, k, p, group: int):
     _check_coords(f"{wrapper} k", (k,), device, (n, 1))
     if group < 1 or n % group:
         raise ValueError(f"{wrapper}: group {group} does not divide {n} lanes")
-    # As many lanes a thread as keeps one wave of blocks on the card.
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    per_thread = max(1, min(MSM_MAX_PER_THREAD, n // (MSM_THREADS * MSM_BLOCKS_PER_SM * sms)))
-    per_group = -(-group // (MSM_THREADS * per_thread))
-    out = _empty_coords(4, n // group * per_group, device)
+    n_groups = n // group
+    slices = msm_slices(n_groups, group, MSM_DIGITS, msm_blocks_per_wave(device))
+    digit_rows = torch.empty((MSM_DIGITS, k.shape[1]), dtype=torch.int8, device=device)
+    partials = torch.empty((n_groups * slices * MSM_DIGITS, 32), dtype=fe.DTYPE, device=device)
+    out = _empty_coords(4, n_groups, device)
     _launch(wrapper, device, k.data_ptr(), k.shape[1], *[c.data_ptr() for c in p], n, group,
-            per_thread, *[c.data_ptr() for c in out])
-    if per_group == 1:
-        return tuple(out)
-    return halving_sums(out, per_group, point_add)
+            slices, digit_rows.data_ptr(), partials.data_ptr(), *[c.data_ptr() for c in out])
+    return tuple(out)
 
 
 def msm_groups(k, p, group: int):
     """Per-group multi-scalar multiplication: scalars k (16, N) or one
     broadcast lane (16, 1), points p as an (x, y, z, t) tuple of (16, N)
     int32 limbs, `group` dividing N → the G = N / group sums
-    Σ k_i · P_i of the contiguous groups, a tuple of (16, G). One launch of
-    the MSM kernel (one partial sum a block of the card), then the
-    ``point_add`` chain over a group's partials where it has more than one.
-    Any group size. Equal to the plain version as group elements, not as
-    coordinates (compare encodings or with ``curve.eq``)."""
+    Σ k_i · P_i of the contiguous groups, a tuple of (16, G): the signed
+    c-bit Pippenger of csrc/msm.cu (recoding, buckets, combine: three
+    kernels on the stream, counted as one launch). Any group size. Equal to
+    the plain version as group elements, not as coordinates (compare
+    encodings or with ``curve.eq``)."""
     if not use_kernels(p[0]):
         return msm_groups_ref(k, p, group)
     return _msm("msm_groups", k, p, group)

@@ -1,7 +1,7 @@
 """The CUDA kernels' field and point arithmetic, compiled for the host.
 
-``csrc/fe25519.cuh``, ``csrc/ge25519.cuh`` and ``csrc/sc25519.cuh`` also
-compile as plain C++.
+``csrc/fe25519.cuh``, ``csrc/ge25519.cuh``, ``csrc/fe25519_32.cuh`` and
+``csrc/sc25519.cuh`` also compile as plain C++.
 ``csrc/host_check.cpp`` wraps them in a C interface; this test builds it with
 g++ and holds it against the spec and the plain torch versions: canonical
 values bit-equal. It says nothing about the CUDA build or launch, which
@@ -230,62 +230,137 @@ def test_sc_mul_on_host_takes_any_16_bit_limbs(lib):
         out, kernels.sc_mul_ref(torch.from_numpy(a_np), torch.from_numpy(b_np)).numpy())
 
 
+
+def lowest_digits(c):
+    """The scalar whose signed c-bit digits below the top one are all
+    -2^(c-1): 2^256 less the recoding's offset, so that k + offset = 2^256
+    (at c = 4 every radix-16 digit is -8 and the top one 1)."""
+    return 2**256 - sum((1 << (c - 1)) << (c * i) for i in range(-(-257 // c) - 1))
+
+
+ALL_MINUS_8 = lowest_digits(4)
+
+
 def test_scalar_mul_ladder_on_host(lib):
-    """The ladder of csrc/scalar_mul.cu (ge_ladder_step from bit 255 down)
-    against the spec: k = 0, 1, l-1 and 2^256-1, the identity and the
-    basepoint as P, random pairs, and k as one broadcast lane."""
+    """The ladder of csrc/scalar_mul.cu (ladder_scalar_mul: the table of
+    P..8P in the block's shared memory, 65 signed radix-16 digits from the
+    top) at 4 threads a block, against the spec: k = 0, 1, l-1, 2^256-1 and
+    a scalar whose digits are all -8, the identity and the basepoint as P,
+    random pairs, and k as one broadcast lane."""
     from rofl_tpu_torch.spec import scalar as SS
 
     L = SS.L
     p, _ = points()
     n = len(p)
-    ks = [0, 1, L - 1, 2**256 - 1] + [
-        int.from_bytes(rng.bytes(32), "little") % L for _ in range(n - 4)]
+    ks = [0, 1, L - 1, 2**256 - 1, ALL_MINUS_8] + [
+        int.from_bytes(rng.bytes(32), "little") % L for _ in range(n - 5)]
     pa = coords_i32(curve.pack_points(p, "cpu"))
     k_np = limbs_i32(ks)
     for k_lanes, k_arr, k_list in ((n, k_np, ks),
-                                   (1, np.ascontiguousarray(k_np[:, 5:6]), [ks[5]] * n)):
+                                   (1, np.ascontiguousarray(k_np[:, 5:6]), [ks[5]] * n),
+                                   (1, np.ascontiguousarray(k_np[:, 4:5]), [ks[4]] * n)):
         out = [np.zeros((16, n), np.int32) for _ in range(4)]
-        lib.host_scalar_mul(ptr(k_arr), k_lanes, *map(ptr, pa), *map(ptr, out), n)
+        lib.host_scalar_mul(ptr(k_arr), k_lanes, *map(ptr, pa), *map(ptr, out), n, 4)
         got = curve.PointArray(*[torch.from_numpy(o) for o in out])
         assert [bytes(r) for r in curve.compress_to_bytes(got)] == [
             q.scalar_mul(k % L).compress() for q, k in zip(p, k_list)]
+        assert 0 <= min(o.min() for o in out) and max(o.max() for o in out) <= 0xFFFF
 
 
-@pytest.mark.parametrize("group,per_thread,k_lanes", [
-    (2, 2, None), (5, 1, None), (13, 2, None), (26, 8, None), (26, 2, 1)])
-def test_msm_grid_on_host(lib, group, per_thread, k_lanes):
-    """The grid of csrc/msm.cu (msm_thread_lanes, ge_msm_lanes, the block's
-    halving tree) at 4 threads a block, against the spec: the partial sums of
-    each group add up to that group's sum of k_i * P_i. Groups shorter than a
-    block, one block, several blocks with a short last run; k = 0, 1, l-1 and
-    the identity among the terms; k as one broadcast lane."""
+FIELD32_OPS = {
+    "add": (0, lambda a, b: (a + b) % P),
+    "sub": (1, lambda a, b: (a - b) % P),
+    "mul": (2, lambda a, b: a * b % P),
+    "sqr": (3, lambda a, b: a * a % P),
+    "neg": (4, lambda a, b: (-a) % P),
+    "pack": (5, lambda a, b: a % P),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FIELD32_OPS))
+def test_field32_op_on_host(lib, name):
+    """The 8 x 32-bit field of csrc/fe25519_32.cuh against Python's % on
+    every pairing of 0, 1, 19, 38, p-1, p, p+1, 2p-1, 2p, 2^255-1,
+    2^256-39, 2^256-38 and 2^256-1 and random values, read from and written
+    to the (16, n) storage of 16-bit limbs: outputs fully carried and below
+    2^256, the input itself for pack."""
+    op, want = FIELD32_OPS[name]
+    a, b = fe_inputs()
+    a_np, b_np = limbs_i32(a), limbs_i32(b)
+    out = np.full_like(a_np, -1)
+    lib.host_fe32_op(op, ptr(a_np), ptr(b_np), ptr(out), len(a))
+    assert out.min() >= 0 and out.max() <= 0xFFFF
+    got = fe.unpack_scalars(out)
+    assert [g % P for g in got] == [want(x, y) for x, y in zip(a, b)]
+    if name == "pack":
+        assert got == a
+
+
+def recoding_scalars(name):
+    from rofl_tpu_torch.spec import scalar as SS
+
+    c = kernels.MSM_WINDOW
+    if name == "edges":
+        return [0, 1, SS.L - 1, 2**256 - 1, 2**255, lowest_digits(c), lowest_digits(c) - 1,
+                lowest_digits(c) + 1, lowest_digits(4)]
+    if name == "random_256_bit":
+        return [int.from_bytes(rng.bytes(32), "little") for _ in range(200)]
+    return [int.from_bytes(rng.bytes(32), "little") % SS.L for _ in range(200)]
+
+
+@pytest.mark.parametrize("name", ["edges", "random_256_bit", "random_below_l"])
+def test_signed_recoding_on_host(lib, name):
+    """csrc/msm.cu's recoding (recode_signed at c = MSM_C = 3): ceil(257 / c)
+    digits, those below the top in [-2^(c-1), 2^(c-1)), the top one in
+    [0, 2^(c-1)], and sum d_i 2^(c i) = k, for k = 0, 1, l-1, 2^256-1,
+    2^255, the scalar whose digits are all the lowest and its neighbours,
+    the all -8 one of the ladder, and random values below 2^256 and below
+    l."""
+    ks = recoding_scalars(name)
+    window = kernels.MSM_WINDOW
+    n, count, half = len(ks), kernels.MSM_DIGITS, 1 << (window - 1)
+    out = np.full((count, n), 99, np.int8)
+    lib.host_recode(ptr(limbs_i32(ks)), ptr(out), n)
+    assert out[:-1].min() >= -half and out[:-1].max() < half
+    assert out[-1].min() >= 0 and out[-1].max() <= half
+    assert [sum(int(d) << (window * i) for i, d in enumerate(out[:, j])) for j in range(n)] == ks
+    if name == "edges":
+        lowest = out[:, 5]
+        assert (lowest[:-1] == -half).all() and lowest[-1] > 0
+
+
+@pytest.mark.parametrize("group,slices,k_lanes", [
+    (2, 1, None), (5, 1, None), (13, 3, None), (26, 2, None), (26, 4, 1), (26, 9, None),
+    (13, 2, None), (26, 3, 1)])
+def test_msm_grid_on_host(lib, group, slices, k_lanes):
+    """The three launches of csrc/msm.cu (recoding, the bucket blocks with
+    their private buckets, tree and running sum, the combine's Horner) at
+    c = MSM_C, run block by block and thread by thread at 4 threads a
+    block, against the spec: each group's sum of k_i * P_i. Groups shorter
+    than a block, several slices, slices that do not divide the group and
+    empty ones (9 slices of 26 terms); k = 0, 1, l-1, 2^256-1 and the scalar
+    whose digits are all the lowest with the identity among the terms; k as
+    one broadcast lane."""
     from rofl_tpu_torch.spec import scalar as SS
 
     L = SS.L
     p, q = points()
     pts = (p + q)[:26]
     n = len(pts)
-    ks = [0, 1, L - 1] + [int.from_bytes(rng.bytes(32), "little") % L for _ in range(n - 3)]
+    ks = [0, 1, L - 1, 2**256 - 1, lowest_digits(kernels.MSM_WINDOW)] + [
+        int.from_bytes(rng.bytes(32), "little") % L for _ in range(n - 5)]
     pa = coords_i32(curve.pack_points(pts, "cpu"))
     k_np = limbs_i32(ks)
     if k_lanes == 1:
         k_np, ks = np.ascontiguousarray(k_np[:, 7:8]), [ks[7]] * n
-    threads = 4
-    per_group = -(-group // (threads * per_thread))
-    n_out = n // group * per_group
-    out = [np.zeros((16, n_out), np.int32) for _ in range(4)]
-    lib.host_msm(ptr(k_np), k_lanes or n, *map(ptr, pa), n, group, per_thread, threads,
-                 *map(ptr, out))
-    partials = curve.unpack_points(curve.PointArray(*[torch.from_numpy(o) for o in out]))
+    out = [np.zeros((16, n // group), np.int32) for _ in range(4)]
+    lib.host_msm(ptr(k_np), k_lanes or n, *map(ptr, pa), n, group, slices, 4, *map(ptr, out))
+    got = curve.unpack_points(curve.PointArray(*[torch.from_numpy(o) for o in out]))
     for g in range(n // group):
-        got = SR.identity()
-        for part in partials[g * per_group:(g + 1) * per_group]:
-            got = got + part
         want = SR.identity()
         for i in range(g * group, (g + 1) * group):
-            want = want + pts[i].scalar_mul(ks[i])
-        assert got.compress() == want.compress()
+            want = want + pts[i].scalar_mul(ks[i] % L)
+        assert got[g].compress() == want.compress()
 
 
 SHARED_SCALARS = {"zero": 0, "one": 1, "l_minus_1": None, "low_weight": (1 << 200) | 5,

@@ -19,6 +19,21 @@ from rofl_tpu_torch.spec import scalar as SS
 pytestmark = pytest.mark.gpu
 
 
+def lowest_digits(c):
+    """The scalar whose signed c-bit digits below the top one are all
+    -2^(c-1): 2^256 less the recoding's offset (all -8 at c = 4)."""
+    return 2**256 - sum((1 << (c - 1)) << (c * i) for i in range(-(-257 // c) - 1))
+
+
+def ladder_scalars(n, rng):
+    """0, 1, l-1 in the first six lanes, then 2^256-1 and the scalars whose
+    digits are all the lowest at c = 4 (the ladder) and c = 3, then random
+    canonical scalars."""
+    edges = [2**256 - 1, lowest_digits(4), lowest_digits(3)]
+    return [[0, 1, SS.L - 1][i % 3] if i < 6 else edges[i - 6] if i < 9
+            else int.from_bytes(rng.bytes(32), "little") % SS.L for i in range(n)]
+
+
 @pytest.fixture(scope="module")
 def card():
     if not torch.cuda.is_available():
@@ -79,26 +94,30 @@ def test_kernels_equal_their_plain_versions(card, n):
         "msm_flat": 0, "msm_groups": 0, "shared_scalar_mul": 0, "scalar_mul_window": 0}
 
 
-@pytest.mark.parametrize("n", [1, 6, 77])
+@pytest.mark.parametrize("n", [1, 6, 77, 200])
 def test_scalar_mul_kernel_equals_its_plain_version_and_the_spec(card, n):
+    """k = 0, 1, l-1, 2^256-1 and the all -8 scalar among random ones, the
+    identity and the basepoint among the points, one broadcast scalar (the
+    all -8 one where there is one); lane counts that leave the last block
+    of 64 threads part empty."""
     rng = np.random.default_rng(n)
     pool = [SR.hash_from_bytes_sha512(rng.bytes(16)) for _ in range(3)]
     pool += [SR.identity(), SR.BASEPOINT]
     pts = [pool[i % len(pool)] for i in range(n)]
-    ks = [[0, 1, SS.L - 1][i % 3] if i < 6 else int.from_bytes(rng.bytes(32), "little") % SS.L
-          for i in range(n)]
+    ks = ladder_scalars(n, rng)
     p = tuple(curve.pack_points(pts, card))
-    k = fe.to_tensor(sc.pack_scalars(ks), card)
+    k = fe.to_tensor(fe.pack_scalars(ks), card)  # not reduced mod l
+    b = min(7, n - 1)
     before = kernels.LAUNCHES["scalar_mul"]
     got = kernels.scalar_mul(k, p)
-    one = kernels.scalar_mul(k[:, -1:].contiguous(), p)
+    one = kernels.scalar_mul(k[:, b:b + 1].contiguous(), p)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["scalar_mul"] - before == 2
     assert torch.equal(kernels.compress(got), kernels.compress(kernels.scalar_mul_ref(k, p)))
     assert [bytes(r) for r in curve.compress_to_bytes(curve.PointArray(*got))] == [
-        q.scalar_mul(v).compress() for q, v in zip(pts, ks)]
+        q.scalar_mul(v % SS.L).compress() for q, v in zip(pts, ks)]
     assert [bytes(r) for r in curve.compress_to_bytes(curve.PointArray(*one))] == [
-        q.scalar_mul(ks[-1]).compress() for q in pts]
+        q.scalar_mul(ks[b] % SS.L).compress() for q in pts]
 
 
 def test_scalar_sums_on_the_card_take_any_length(card):
@@ -141,19 +160,24 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         kernels.scalar_mul(a.cpu(), p)
 
 
-@pytest.mark.parametrize("n,group", [(1, 1), (77, 77), (32, 2), (130, 65)])
+@pytest.mark.parametrize("n,group", [
+    (1, 1), (77, 77), (32, 2), (130, 65), (300, 100), (1000, 1000), (2 * 24593, 24593)])
 def test_msm_kernel_equals_its_plain_version_and_the_spec(card, n, group):
     """msm_groups (and msm_flat where there is one group) against the plain
-    version and the spec, as canonical encodings: zero scalars, l-1, the
-    identity among the points, and one broadcast scalar."""
+    version and the spec, as canonical encodings: zero scalars, l-1,
+    2^256-1 and the all -8 scalar, the identity among the points, and one
+    broadcast scalar. Groups of the prime 24593 terms are cut into slices
+    by the wrapper, which then cannot divide them."""
     rng = np.random.default_rng(n)
     pool = [SR.hash_from_bytes_sha512(rng.bytes(16)) for _ in range(3)]
     pool += [SR.identity(), SR.BASEPOINT]
     pts = [pool[i % len(pool)] for i in range(n)]
-    ks = [[0, 1, SS.L - 1][i % 3] if i < 6 else int.from_bytes(rng.bytes(32), "little") % SS.L
-          for i in range(n)]
+    ks = ladder_scalars(n, rng)
     p = tuple(curve.pack_points(pts, card))
-    k = fe.to_tensor(sc.pack_scalars(ks), card)
+    k = fe.to_tensor(fe.pack_scalars(ks), card)  # not reduced mod l
+    slices = kernels.msm_slices(n // group, group, kernels.MSM_DIGITS,
+                                kernels.msm_blocks_per_wave(card))
+    assert slices > 1 if group == 24593 else slices == 1
     before = dict(kernels.LAUNCHES)
     got = kernels.msm_groups(k, p, group)
     one = kernels.msm_groups(k[:, -1:].contiguous(), p, group)
@@ -164,11 +188,15 @@ def test_msm_kernel_equals_its_plain_version_and_the_spec(card, n, group):
     assert torch.equal(kernels.compress(got), kernels.compress(kernels.msm_groups_ref(k, p, group)))
 
     def spec_sums(scalars, size):
+        """Each group's sum, as sum_j (sum of its k_i with P_i = pool[j]) pool[j]."""
         sums = []
         for g in range(0, n, size):
+            per_point = [0] * len(pool)
+            for i in range(g, g + size):
+                per_point[i % len(pool)] += scalars[i]
             acc = SR.identity()
-            for q, v in zip(pts[g:g + size], scalars[g:g + size]):
-                acc = acc + q.scalar_mul(v)
+            for q, v in zip(pool, per_point):
+                acc = acc + q.scalar_mul(v % SS.L)
             sums.append(acc.compress())
         return sums
 

@@ -16,6 +16,11 @@ the smallest shape that exercises the padding (d = 7 values, extended to 8, in
                lane 6), whose verdict depends on the mode (the rand proofs of
                the Range modes are made on the unclipped values)
   crp          one CompressedRandProof on fresh commitments
+  cuts         each frame of ``modes`` cut before its last field and inside
+               it, with what the JAX package makes of the cut frame: its
+               reader parses the bytes that are there as the whole message
+               (``rofl_tpu/fl/proto`` ``decode_length_delimited``), so a cut
+               before the last field reads that field as its default
   accumulator  3 EncRangeCompressed clients with cancelling blindings, and
                ``Accumulator.extract`` of their sum with the server's table,
                bsgs_m = 2^16 (the JAX walk unrolls its 2^16 / bsgs_m giant
@@ -95,6 +100,60 @@ def crypto_config(P, enc_type: int, check_percentage: float, fp):
                           enc_type=enc_type, fp=fp)
 
 
+CUTS = ("before_last_field", "inside_last_field")
+
+
+def _varint(data: bytes, i: int) -> tuple[int, int]:
+    n = shift = 0
+    while True:
+        b = data[i]
+        n |= (b & 0x7F) << shift
+        i += 1
+        if not b & 0x80:
+            return n, i
+        shift += 7
+
+
+def cut_lengths(frame: bytes) -> dict:
+    """Byte counts that cut a length-delimited frame before its last field
+    and inside it (one byte short). The envelopes hold varint, fixed32 and
+    length-delimited fields only."""
+    _, i = _varint(frame, 0)
+    last = i
+    while i < len(frame):
+        last = i
+        key, i = _varint(frame, i)
+        wire_type = key & 7
+        if wire_type == 0:
+            _, i = _varint(frame, i)
+        elif wire_type == 5:
+            i += 4
+        else:
+            length, i = _varint(frame, i)
+            i += length
+    return {"before_last_field": last, "inside_last_field": len(frame) - 1}
+
+
+def cut_verdicts(P, fp, modes: dict) -> dict:
+    """The JAX package's verdict on each frame of ``modes`` cut as
+    ``cut_lengths`` says: "raises <error>" where its reader or verifier
+    raises, else "accepts" or "refuses"."""
+    out = {}
+    for name, case in modes.items():
+        frame = bytes.fromhex(case["serialized"])
+        out[name] = {}
+        for cut, length in cut_lengths(frame).items():
+            try:
+                params = P.deserialize(case["enc_type"], frame[:length], fp)
+                verdict = "accepts" if P.verify(
+                    params, np.random.default_rng(SEEDS["verify"])) else "refuses"
+            except Exception as e:  # noqa: BLE001 - the verdict is what JAX raises
+                verdict = f"raises {type(e).__name__}"
+            _progress(f"cut {name} {cut}: {verdict}")
+            out[name][cut] = {"length": length, "jax": verdict}
+    return out
+
+
 def _progress(step: str) -> None:
     """One line on stderr a step of ``make_kat``, with the process's peak
     resident memory so far."""
@@ -137,6 +196,7 @@ def make_kat() -> dict:
     modes = {name: round_trip(VALUES, t, cp) for name, t, cp in CASES}
     out_of_range = {name: round_trip(out_of_range_values(), t, cp)
                     for name, t, cp in OUT_OF_RANGE_CASES}
+    cuts = cut_verdicts(P, fp, modes)
 
     m = jnp.asarray(fp.f32_to_scalar_limbs(np.asarray(VALUES, np.float32)))
     crp_blind = pedersen.rnd_scalar_limbs(d, np.random.default_rng(SEEDS["crp_m"]))
@@ -164,6 +224,7 @@ def make_kat() -> dict:
         "l2_value_range": L2_VALUE_RANGE, "n_partition": N_PARTITION, "seeds": SEEDS,
         "blinding": sv.serialize_scalar_vec(np.asarray(blind)).hex(),
         "modes": modes,
+        "cuts": cuts,
         "out_of_range": {"lane": OUT_OF_RANGE_LANE, "value": OUT_OF_RANGE_VALUE,
                          "cases": out_of_range},
         "crp": {"blinding": sv.serialize_scalar_vec(np.asarray(crp_blind)).hex(),
