@@ -16,6 +16,15 @@ Phases:
   build    nvcc builds the kernels of the thirteen wrappers from the twelve
            sources in rofl_tpu_torch/csrc (in parallel) and reports ptxas'
            registers, spill bytes and shared memory for each entry point
+  compress_first
+           compress against its plain version and the spec before any check
+           reads a point through it: every representative of random points
+           and the basepoint (both sides of its rotate and negate-y selects),
+           the identity as (0 : s : s : 0) with every limb 2^16 - 1 and as
+           the torsion points, coordinates raised into [p, 2^256), at N = 1,
+           77 and 50000, and what the 32-bit point_add (a broadcast lane on
+           either side too), scalar_mul and msm_groups leave; point_add on
+           the same edge inputs
   kernels  point_add, point_double, compress, decompress, sc_reduce_wide,
            sc_mul, sc_add, sc_sub, scalar_mul, msm_flat, msm_groups,
            shared_scalar_mul, scalar_mul_window against their plain torch
@@ -66,9 +75,10 @@ Phases:
            proof or compressed proof is refused, an accumulator of two of
            the three clients extracts None, and one EncRange client at
            check_percentage 0.5 verifies after its wire round trip.
-Launch counts are set to zero just before each path (for l2: its timed run;
-for modes: each mode's three clients and the extract) and read just after
-it. shared_scalar_mul and scalar_mul_window are on no path of either
+Launch counts and lanes launched (the sum of N over a kernel's launches) are
+set to zero just before each path (for l2: its timed run; for modes: each
+mode's three clients and the extract) and read just after it; each path's
+line prints both. shared_scalar_mul and scalar_mul_window are on no path of either
 package's defaults (the JAX package never calls the first and runs the
 second only under ROFL_SMUL_W > 1): their launches are 0 on every path.
 """
@@ -100,6 +110,7 @@ from rofl_tpu_torch.crypto.fp_codec import FpConfig  # noqa: E402
 from rofl_tpu_torch.fl import params as P  # noqa: E402
 from rofl_tpu_torch.fl import wire  # noqa: E402
 from rofl_tpu_torch.ops import bsgs, curve, fe, kernels, sc  # noqa: E402
+from rofl_tpu_torch.spec import field as SF  # noqa: E402
 from rofl_tpu_torch.spec import generators as G  # noqa: E402
 from rofl_tpu_torch.spec import ristretto as SR  # noqa: E402
 from rofl_tpu_torch.spec import scalar as SS  # noqa: E402
@@ -124,10 +135,11 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 2
 
 # 32-bit multiply-adds per lane, counted for the cheapest layout the card
-# allows (scalar_mul and the MSMs run on it; the other kernels keep 16-bit
-# limbs, 256 per product): with 8 limbs of 32 bits a 255-bit product is 64
-# wide multiplies, each a low and a high 32-bit multiply-add, so 128, and a
-# squaring is 36 wide multiplies, 72.
+# allows (point_add, compress, scalar_mul and the MSMs run on it; point_double,
+# decompress and the shared and windowed ladders keep 16-bit limbs, 256 per
+# product): with 8 limbs of 32 bits a 255-bit product is 64 wide multiplies,
+# each a low and a high 32-bit multiply-add, so 128, and a squaring is 36
+# wide multiplies, 72.
 # Field operations counted from the formulas in csrc/ge25519.cuh:
 #   add        9 products
 #   double     4 products + 4 squarings
@@ -464,6 +476,99 @@ def test_ladder_operands(n: int, rng: np.random.Generator):
     return k, p
 
 
+# The 2- and 4-torsion points: added to a point they give the four
+# representatives of its Ristretto element, which between them take each side
+# of the encoding's rotate and negate-y selects. In Ristretto each is the
+# identity.
+TORSION = (SR.identity(), SR.RistrettoPoint(0, SF.P - 1, 1, 0),
+           SR.RistrettoPoint(SF.SQRT_M1, 0, 1, 0), SR.RistrettoPoint(-SF.SQRT_M1, 0, 1, 0))
+
+
+def packed(coords) -> tuple:
+    """Four lists of Python ints below 2^256 -> (x, y, z, t) on the card."""
+    return tuple(fe.to_tensor(fe.pack_scalars(values), DEVICE) for values in coords)
+
+
+def edge_inputs(rng: np.random.Generator) -> dict:
+    """name -> ((x, y, z, t) on the card, the spec's encodings): each
+    representative of random points and the basepoint in a random projective
+    scale; the identity as (0 : s : s : 0), s = 2^256 - 1 (every limb
+    2^16 - 1) among them, and as each torsion point; and points whose
+    coordinates are raised by the largest multiple of p that keeps them
+    below 2^256, as the 32-bit kernels may leave them."""
+    pool = [SR.hash_from_bytes_sha512(rng.bytes(16)) for _ in range(8)] + [SR.BASEPOINT]
+    reps = [a + t for a in pool for t in TORSION]
+    scale = [int.from_bytes(rng.bytes(32), "little") % (SF.P - 1) + 1 for _ in reps]
+    s = [1, 2**256 - 1, SF.P + 1, 2**255, int.from_bytes(rng.bytes(32), "little") % SF.P or 1]
+    ident = [[0] * len(s), s, s, [0] * len(s)]
+    weak = pool + [-SR.BASEPOINT]
+    return {
+        "representatives": (
+            packed([[getattr(a, c) * k % SF.P for a, k in zip(reps, scale)] for c in "XYZT"]),
+            [a.compress() for a in reps]),
+        "identity_forms": (
+            packed([v + [getattr(t, c) for t in TORSION] for v, c in zip(ident, "XYZT")]),
+            [bytes(32)] * (len(s) + len(TORSION))),
+        "weakly_reduced": (
+            packed([[v + (2**256 - 1 - v) // SF.P * SF.P for v in (getattr(a, c) for a in weak)]
+                    for c in "XYZT"]),
+            [a.compress() for a in weak]),
+    }, {a.encode_selects() for a in reps}
+
+
+def check_compress_first(records: dict, hold, rng: np.random.Generator) -> None:
+    """compress against its plain version, before any check reads a point
+    through it (scalar_mul, the MSMs and tune_kernels compare encodings):
+    on edge_inputs, alone and tiled to N = 1, 77 and 50000 lanes, and on what
+    the 32-bit point_add (operands and a broadcast lane on either side),
+    scalar_mul and msm_groups leave. point_add is held on the same edge
+    inputs. Ends the run at the first disagreement."""
+    cases = {}
+
+    def check(name, p, want=None):
+        got, ref = kernels.compress(p), kernels.compress_ref(p)
+        ok = max_abs_err((got,), (ref,)) == 0
+        hold("compress", (got,), (ref,))
+        if want is not None:
+            ok &= [bytes(r) for r in fe.to_bytes_array(got.cpu())] == want
+        cases[name] = {"lanes": got.shape[1], "match": bool(ok)}
+        if not ok:
+            records["compress"]["match"] = False
+
+    edges, selects = edge_inputs(rng)
+    for name, (p, want) in edges.items():
+        check(name, p, want)
+    every = tuple(torch.cat(c, dim=1) for c in zip(*(p for p, _ in edges.values())))
+    every_want = [b for _, want in edges.values() for b in want]
+    # (0 : s : s : 0) with s = 2^256 - 1: the identity, every limb 2^16 - 1
+    one = tuple(c[:, 1:2].contiguous() for c in edges["identity_forms"][0])
+    for n in (1, 77, D):
+        idx = torch.arange(n, device=DEVICE) % every[0].shape[1]
+        p = tuple(c[:, idx].contiguous() for c in every)
+        check(f"edges_at_{n}", p, [every_want[i] for i in idx.tolist()] if n < D else None)
+        q = tuple(c.roll(1, dims=1).contiguous() for c in p)
+        for a, b in ((p, q), (p, one), (one, p)):
+            out = kernels.point_add(a, b)
+            hold("point_add", out, kernels.point_add_ref(a, b))
+            check(f"point_add_of_edges_at_{n}" + ("" if b is q else "_broadcast"), out)
+    p, q = test_points(D, rng)  # P + (-P) among the pairs
+    q1 = tuple(c[:, :1].contiguous() for c in q)
+    check("point_add_outputs", kernels.point_add(p, q))
+    check("point_add_outputs_broadcast", kernels.point_add(q1, p))
+    for n in (77, D):
+        k, p = test_ladder_operands(n, rng)
+        check(f"scalar_mul_outputs_at_{n}", kernels.scalar_mul(k, p))
+    k, p = test_ladder_operands(MSM_N_GROUPS * 64, rng)
+    check("msm_groups_outputs", kernels.msm_groups(k, p, 64))
+    torch.cuda.synchronize()
+    covered = sorted([bool(r), bool(g)] for r, g in selects)
+    emit({"phase": "compress_first", "selects_covered": covered, "cases": cases})
+    records["compress"]["first_checks"] = {name: c["lanes"] for name, c in cases.items()}
+    if len(covered) < 4 or not all(c["match"] for c in cases.values()):
+        sys.exit("compress disagrees with its plain version or the spec, or the edge inputs "
+                 "missed a side of its selects: no later check may lean on it")
+
+
 SC_KERNELS = {
     "sc_mul": (kernels.sc_mul, kernels.sc_mul_ref),
     "sc_add": (kernels.sc_add, kernels.sc_add_ref),
@@ -490,6 +595,8 @@ def phase_kernels() -> dict:
             1e3 * min(synced(plain_fn)[1] for _ in range(2)))
         records[name]["bound_ms"], records[name]["bound_by"] = bound_ms(name, n)
         records[name]["library_ms"] = None
+
+    check_compress_first(records, hold, rng)
 
     for n in CHECK_LANES:
         p, q = test_points(n, rng)
@@ -747,10 +854,24 @@ SIGMA_KERNELS = ("point_add", "compress", "decompress", "sc_reduce_wide") + NEW_
 
 
 def start_path() -> None:
-    """Zero every launch count and the peak-memory mark before a path is driven."""
+    """Zero every launch and lane count and the peak-memory mark before a path
+    is driven."""
     for name in kernels.LAUNCHES:
         kernels.LAUNCHES[name] = 0
+        kernels.LANES[name] = 0
     torch.cuda.reset_peak_memory_stats()
+
+
+def path_counts() -> dict:
+    """Launches and lanes launched by kernel since start_path."""
+    return {"launches": dict(kernels.LAUNCHES), "lanes": dict(kernels.LANES)}
+
+
+def restore_counts(saved: dict) -> None:
+    """Put back the counts of path_counts(): what ran since was a check or a
+    measurement beside the path, not the path."""
+    kernels.LAUNCHES.update(saved["launches"])
+    kernels.LANES.update(saved["lanes"])
 
 
 def phase_round() -> tuple[dict, dict]:
@@ -787,7 +908,7 @@ def phase_round() -> tuple[dict, dict]:
     # N_CLIENTS - 1 vectors on the card (sc_add, sc_sub), the framing of one
     # blob on the host, and the same sum as Python integers on the host, which
     # the sum on the card replaced.
-    before = dict(kernels.LAUNCHES)
+    saved = path_counts()
     vecs = [fe.to_tensor(sv.deserialize_scalar_vec(b), DEVICE) for b in blindings[:-1]]
     stage("blindings_one_draw", lambda: pedersen.rnd_scalar_tensor(D, rng, DEVICE))
     last = stage("blindings_sum_on_card",
@@ -802,7 +923,7 @@ def phase_round() -> tuple[dict, dict]:
 
     blindings_cancel &= bool(np.array_equal(stage("blindings_sum_python_integers",
                                                   python_integer_sum), last.reshape(16, D)))
-    kernels.LAUNCHES.update(before)  # measurements beside the path, not of it
+    restore_counts(saved)  # measurements beside the path, not of it
     # The first client's commit also builds the two fixed-base tables.
     blobs = [stage(f"commit_client_{c}",
                    lambda: bindings.commit(updates[c], blindings[c], FP, device=DEVICE))
@@ -863,7 +984,8 @@ def phase_round() -> tuple[dict, dict]:
     except ValueError:
         rejected = True
 
-    launches = dict(kernels.LAUNCHES)
+    counts = path_counts()
+    launches = counts["launches"]
     result = {
         "phase": "round", "d": D, "clients": N_CLIENTS, "fp": [FP.n_bits, FP.n_frac],
         "bsgs_m": FP.default_bsgs_table_size, "small_table_m": SMALL_TABLE,
@@ -876,7 +998,7 @@ def phase_round() -> tuple[dict, dict]:
         "elgamal_sum_exact": elgamal_exact, "small_table_sum_exact": small_exact,
         "uncancelled_round_rejected": rejected,
         "peak_device_bytes": torch.cuda.max_memory_allocated(),
-        "seconds": seconds, "launches": launches,
+        "seconds": seconds, "launches": launches, "lanes": counts["lanes"],
     }
     emit(result)
     checks = ("blindings_cancel", "pedersen_sum_exact", "commitments_match_spec",
@@ -892,7 +1014,7 @@ def phase_round() -> tuple[dict, dict]:
     if failed:
         sys.exit(f"round failed: {failed}")
     state = {"updates": updates, "blindings": blindings, "blobs": blobs}
-    return launches, state
+    return counts, state
 
 
 # -- phase 5: the Σ-protocol path -------------------------------------------------
@@ -955,10 +1077,10 @@ def phase_sigma(state: dict) -> dict:
         the rng alone, so a copy of the rng gives them without touching it."""
         twin = np.random.default_rng()
         twin.bit_generator.state = rng.bit_generator.state
-        counted = dict(kernels.LAUNCHES)  # these draws are the check's, not the path's
+        saved = path_counts()  # these draws are the check's, not the path's
         draws = [spec_scalars(pedersen.rnd_scalar_tensor(D, twin, DEVICE))
                  for _ in range(n_draws)]
-        kernels.LAUNCHES.update(counted)
+        restore_counts(saved)
         return draws
 
     start_path()
@@ -1078,7 +1200,8 @@ def phase_sigma(state: dict) -> dict:
     rand_messages = [(b"C", messages[0][1]), (b"C_prime", messages[2][1])]
     stage("rand_transcript", lambda: sigma.challenges(b"RandProof", rand_messages))
 
-    launches = dict(kernels.LAUNCHES)
+    counts = path_counts()
+    launches = counts["launches"]
     want_wire = {"rand_proof": 8 + 136 * D, "elgamal_pairs": 8 + 72 * D,
                  "square_rand_proof": 8 + 200 * D, "square_rand_commitments": 8 + 104 * D,
                  "square_proof": 8 + 168 * D}
@@ -1086,13 +1209,13 @@ def phase_sigma(state: dict) -> dict:
     result = {"phase": "sigma", "d": D, "fp": [FP.n_bits, FP.n_frac], "spec_lanes": SPEC_LANES,
               "tampered_lane": TAMPERED_LANE, "wire_bytes": wire, **checks,
               "peak_device_bytes": torch.cuda.max_memory_allocated(),
-              "seconds": seconds, "launches": launches}
+              "seconds": seconds, "launches": launches, "lanes": counts["lanes"]}
     emit(result)
     failed = [name for name, ok in checks.items() if not ok]
     failed += [f"{name} was never launched" for name in SIGMA_KERNELS if launches[name] == 0]
     if failed:
         sys.exit(f"sigma failed: {failed}")
-    return launches
+    return counts
 
 
 # -- phase 6: the L2-norm client round ----------------------------------------------
@@ -1145,7 +1268,8 @@ def phase_l2() -> dict:
     start_path()
     enc, data, dec, ok = round_trip("")
     torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
+    counts = path_counts()
+    launches = counts["launches"]
     peak = torch.cuda.max_memory_allocated()
     checks = {"warmup_round_verifies": bool(warm_ok), "honest_round_verifies": bool(ok),
               "wire_bytes_match_parts": len(data) == l2_wire_bytes(enc)}
@@ -1221,13 +1345,14 @@ def phase_l2() -> dict:
         "metric": "l2_path_prove_verify_s_d50000", "value": prove_s + verify_s,
         "prove_s": prove_s, "verify_s": verify_s, "wire_bytes": len(data), **checks,
         "peak_device_bytes": peak, "seconds": seconds, "launches": launches,
+        "lanes": counts["lanes"],
     }
     emit(result)
     failed = [name for name, ok in checks.items() if not ok]
     failed += [f"{name} was never launched" for name in L2_KERNELS if launches[name] == 0]
     if failed:
         sys.exit(f"l2 failed: {failed}")
-    return launches, prove_s + verify_s
+    return counts, prove_s + verify_s
 
 
 # -- phase 7: the server round in the other encrypted modes -------------------------
@@ -1308,7 +1433,7 @@ def phase_modes(l2_metric: float) -> dict:
     result = {"phase": "modes", "d": D, "clients": MODES_CLIENTS, "fp": [FP.n_bits, FP.n_frac],
               "n_partition": 16, "value_range": 8, "l2_value_range": 16, "check_percentage": 1.0,
               "seed": MODES_SEED, "l2_path_prove_verify_s_d50000": l2_metric, "modes": {}}
-    launches_by_mode, failed = {}, []
+    counts_by_mode, failed = {}, []
     for mode, enc_type in MODES:
         seconds, checks = {}, {}
 
@@ -1338,9 +1463,9 @@ def phase_modes(l2_metric: float) -> dict:
             decoded.append(dec)
         got = stage("extract", acc.extract)
         torch.cuda.synchronize()
-        launches = dict(kernels.LAUNCHES)
+        counts_by_mode[mode] = path_counts()
+        launches = counts_by_mode[mode]["launches"]
         peak = torch.cuda.max_memory_allocated()
-        launches_by_mode[mode] = launches
 
         # JAX's accumulator starts from (B, B), so its L holds B^(1 + sum m)
         want = ((bits.sum(axis=0) + 1) / FP.scale).astype(np.float32)
@@ -1371,7 +1496,8 @@ def phase_modes(l2_metric: float) -> dict:
             "enc_type": enc_type, metric: seconds[f"{last}.encrypt"] + seconds[f"{last}.verify"],
             "prove_s": seconds[f"{last}.encrypt"], "verify_s": seconds[f"{last}.verify"],
             "extract_s": seconds["extract"], "wire_bytes": sizes[0], **checks,
-            "peak_device_bytes": peak, "seconds": seconds, "launches": launches}
+            "peak_device_bytes": peak, "seconds": seconds, "launches": launches,
+            "lanes": counts_by_mode[mode]["lanes"]}
         failed += [f"{mode}: {name}" for name, ok in checks.items() if not ok]
         need = MODES_KERNELS + (("scalar_mul",) if mode in LADDER_MODES else ())
         failed += [f"{mode}: {name} was never launched" for name in need if launches[name] == 0]
@@ -1380,31 +1506,32 @@ def phase_modes(l2_metric: float) -> dict:
     emit(result)
     if failed:
         sys.exit(f"modes failed: {failed}")
-    return launches_by_mode
+    return counts_by_mode
 
 
 def main() -> None:
     smi = phase_device()
     phase_build()
     records = phase_kernels()
-    round_launches, state = phase_round()
-    sigma_launches = phase_sigma(state)
-    l2_launches, l2_metric = phase_l2()
-    mode_launches = phase_modes(l2_metric)
+    round_counts, state = phase_round()
+    sigma_counts = phase_sigma(state)
+    l2_counts, l2_metric = phase_l2()
+    counts_by_path = {"round": round_counts, "sigma": sigma_counts, "l2": l2_counts,
+                      **phase_modes(l2_metric)}
     print(smi, flush=True)
-    keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "match",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "n",
-            "checked_lanes")
+    keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "lanes",
+            "lanes_by_path", "match", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "n", "checked_lanes")
     extra_keys = ("group", "window", "slices", "ms_at_131618", "plain_ms_at_131618",
                   "bound_ms_at_131618", "slices_at_131618", "ms_at_4n", "scalars", "windows",
                   "scalar_mul_ms_same_inputs")
     rows = []
     for name, rec in records.items():
-        by_path = {"round": round_launches[name], "sigma": sigma_launches[name],
-                   "l2": l2_launches[name],
-                   **{mode: launches[name] for mode, launches in mode_launches.items()}}
+        by_path = {path: c["launches"][name] for path, c in counts_by_path.items()}
+        lanes_by_path = {path: c["lanes"][name] for path, c in counts_by_path.items()}
         rec = {**rec, **KERNEL_FACTS[name], "launches": sum(by_path.values()),
-               "launches_by_path": by_path}
+               "launches_by_path": by_path, "lanes": sum(lanes_by_path.values()),
+               "lanes_by_path": lanes_by_path}
         rows.append({**{k: rec[k] for k in keys}, **{k: rec[k] for k in extra_keys if k in rec}})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,10 @@
 //
 // Device counterpart of rofl_tpu_torch/ops/fe.py and the replacement of the
 // in-kernel field helpers of the TPU package (rofl_tpu/ops/kernels.py
-// f_mul, f_sqr, f_norm, f_canon, f_sqrt_ratio_m1, ...). Every curve kernel
-// includes this header.
+// f_mul, f_sqr, f_norm, f_canon, f_sqrt_ratio_m1, ...) under the curve
+// kernels still on 16-bit limbs: csrc/point_double.cu, csrc/decompress.cu,
+// csrc/shared_scalar_mul.cu and csrc/scalar_mul_window.cu (the others run on
+// fe25519_32.cuh).
 //
 // Representation: 16 limbs of 16 bits in 32-bit registers, weakly reduced in
 // [0, 2^256), the same as the tensors outside the kernels, so loads and

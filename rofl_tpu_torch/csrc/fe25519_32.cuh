@@ -1,6 +1,6 @@
 // GF(2^255-19) and Ristretto255 point arithmetic on 8 limbs of 32 bits, one
-// lane per CUDA thread: the arithmetic under csrc/msm.cu and
-// csrc/scalar_mul.cu.
+// lane per CUDA thread: the arithmetic under csrc/point_add.cu,
+// csrc/compress.cu, csrc/msm.cu and csrc/scalar_mul.cu.
 //
 // csrc/fe25519.cuh keeps 16 limbs of 16 bits, so a product there is 256
 // 32x32->64-bit multiply-adds into 64-bit columns. Here a product is 64
@@ -190,6 +190,92 @@ ROFL_HD fe fe_select(bool cond, const fe &a_true, const fe &a_false) {
   return r;
 }
 
+// sqrt(-1) and 1/sqrt(a - d) (spec/field.py SQRT_M1, INVSQRT_A_MINUS_D).
+ROFL_HD fe fe_const_sqrt_m1() {
+  return fe{{0x4a0ea0b0u, 0xc4ee1b27u, 0xad2fe478u, 0x2f431806u, 0x3dfbd7a7u, 0x2b4d0099u,
+             0x4fc1df0bu, 0x2b832480u}};
+}
+ROFL_HD fe fe_const_invsqrt_a_minus_d() {
+  return fe{{0x805d40eau, 0x99c8fdaau, 0x5a4172beu, 0x9d2f1617u, 0xfe01d840u, 0x16c27b91u,
+             0xcfaffca2u, 0x786c8905u}};
+}
+
+// Word w of p = 2^255 - 19.
+ROFL_HD uint32_t p_word(int w) {
+  return w == 0 ? 0xFFFFFFEDu : (w == NW - 1 ? 0x7FFFFFFFu : 0xFFFFFFFFu);
+}
+
+// The canonical representative in [0, p): a value below 2^256 < 3p takes
+// two conditional subtracts of p.
+ROFL_HD fe fe_canon(fe a) {
+  ROFL_UNROLL
+  for (int pass = 0; pass < 2; ++pass) {
+    fe d;
+    uint32_t borrow = 0;
+    ROFL_UNROLL
+    for (int k = 0; k < NW; ++k) d.v[k] = sub_borrow(a.v[k], p_word(k), borrow);
+    a = fe_select(borrow == 0, d, a);
+  }
+  return a;
+}
+
+ROFL_HD bool fe_is_zero(const fe &a) {
+  const fe c = fe_canon(a);
+  uint32_t acc = 0;
+  ROFL_UNROLL
+  for (int k = 0; k < NW; ++k) acc |= c.v[k];
+  return acc == 0;
+}
+
+// a = b (mod p): a - b is a multiple of p.
+ROFL_HD bool fe_eq(const fe &a, const fe &b) { return fe_is_zero(fe_sub(a, b)); }
+
+// dalek IS_NEGATIVE: the canonical encoding is odd.
+ROFL_HD bool fe_is_negative(const fe &a) { return (fe_canon(a).v[0] & 1u) != 0; }
+
+// CT_ABS: negate iff negative.
+ROFL_HD fe fe_cabs(const fe &a) { return fe_select(fe_is_negative(a), fe_neg(a), a); }
+
+// n squarings in a rolled loop: one copy of the squaring body a call site.
+ROFL_HD fe fe_sqr_n(fe a, int n) {
+  ROFL_NO_UNROLL
+  for (int i = 0; i < n; ++i) a = fe_sqr(a);
+  return a;
+}
+
+// x^((p-5)/8) = x^(2^252 - 3) by ref10's addition chain (ops/fe.py
+// _pow22501, then two squarings and a product): 251 squarings, 11 products.
+ROFL_HD fe fe_pow_p58(const fe &x) {
+  const fe t0 = fe_sqr(x);
+  const fe t2 = fe_mul(x, fe_sqr_n(t0, 2));
+  const fe t5 = fe_mul(t2, fe_sqr(fe_mul(t0, t2)));
+  const fe t6 = fe_mul(fe_sqr_n(t5, 5), t5);
+  const fe t7 = fe_mul(fe_sqr_n(t6, 10), t6);
+  const fe t8 = fe_mul(fe_sqr_n(t7, 20), t7);
+  const fe t9 = fe_mul(fe_sqr_n(t8, 10), t6);
+  const fe t10 = fe_mul(fe_sqr_n(t9, 50), t9);
+  const fe t11 = fe_mul(fe_sqr_n(t10, 100), t10);
+  const fe t12 = fe_mul(fe_sqr_n(t11, 50), t9);  // x^(2^250 - 1)
+  return fe_mul(fe_sqr_n(t12, 2), x);
+}
+
+// FieldElement::sqrt_ratio_i (ops/fe.py sqrt_ratio_m1): returns was_square
+// and writes the non-negative root of u/v, or of i*u/v, to r.
+ROFL_HD bool fe_sqrt_ratio_m1(const fe &u, const fe &v, fe &r) {
+  const fe v3 = fe_mul(fe_sqr(v), v);
+  const fe v7 = fe_mul(fe_sqr(v3), v);
+  r = fe_mul(fe_mul(u, v3), fe_pow_p58(fe_mul(u, v7)));
+  const fe check = fe_mul(v, fe_sqr(r));
+  const fe u_neg = fe_neg(u);
+  const fe sqrt_m1 = fe_const_sqrt_m1();
+  const bool correct_sign = fe_eq(check, u);
+  const bool flipped_sign = fe_eq(check, u_neg);
+  const bool flipped_sign_i = fe_eq(check, fe_mul(u_neg, sqrt_m1));
+  r = fe_select(flipped_sign || flipped_sign_i, fe_mul(r, sqrt_m1), r);
+  r = fe_cabs(r);
+  return correct_sign || flipped_sign;
+}
+
 // The port's storage: limbs 2w and 2w + 1 (16 bits each) of a (16, N)
 // int32 array are word w.
 ROFL_HD fe fe_load16(const int32_t *base, int64_t n_lanes, int64_t lane) {
@@ -295,6 +381,26 @@ ROFL_HD ge ge_cneg(bool neg, const ge &p) {
   r.x = fe_select(neg, fe_neg(p.x), p.x);
   r.t = fe_select(neg, fe_neg(p.t), p.t);
   return r;
+}
+
+// Ristretto encode (RFC 9496 4.3.2) -> the canonical s. The same formula as
+// the TPU package's _compress_kernel and kernels.compress_ref; every input
+// below 2^256 is taken, and the output does not depend on the representative.
+ROFL_HD fe ristretto_compress(const ge &p) {
+  const fe u1 = fe_mul(fe_add(p.z, p.y), fe_sub(p.z, p.y));
+  const fe u2 = fe_mul(p.x, p.y);
+  fe inv_sqrt;
+  fe_sqrt_ratio_m1(fe_one(), fe_mul(u1, fe_sqr(u2)), inv_sqrt);
+  const fe den1 = fe_mul(inv_sqrt, u1);
+  const fe den2 = fe_mul(inv_sqrt, u2);
+  const fe z_inv = fe_mul(fe_mul(den1, den2), p.t);
+  const fe sqrt_m1 = fe_const_sqrt_m1();
+  const bool rotate = fe_is_negative(fe_mul(p.t, z_inv));
+  const fe x = fe_select(rotate, fe_mul(p.y, sqrt_m1), p.x);
+  fe y = fe_select(rotate, fe_mul(p.x, sqrt_m1), p.y);
+  const fe den_inv = fe_select(rotate, fe_mul(den1, fe_const_invsqrt_a_minus_d()), den2);
+  y = fe_select(fe_is_negative(fe_mul(x, z_inv)), fe_neg(y), y);
+  return fe_canon(fe_cabs(fe_mul(den_inv, fe_sub(p.z, y))));
 }
 
 // -- signed digits --------------------------------------------------------

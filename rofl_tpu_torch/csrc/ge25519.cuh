@@ -1,10 +1,12 @@
 // Ristretto255 point arithmetic for one lane per CUDA thread, on top of
 // fe25519.cuh: extended twisted-Edwards coordinates (X:Y:Z:T), a = -1.
-// Same formulas as the TPU package's p_add / p_double / _compress_kernel /
-// _decompress_kernel / _make_smul_window_kernel / _shared_mul_kernel
-// (rofl_tpu/ops/kernels.py) and the plain versions in
-// rofl_tpu_torch/ops/kernels.py. csrc/msm.cu and csrc/scalar_mul.cu use the
-// same formulas on 32-bit limbs (fe25519_32.cuh).
+// Same formulas as the TPU package's p_add / p_double / _decompress_kernel /
+// _make_smul_window_kernel / _shared_mul_kernel (rofl_tpu/ops/kernels.py)
+// and the plain versions in rofl_tpu_torch/ops/kernels.py, under
+// csrc/point_double.cu, csrc/decompress.cu, csrc/shared_scalar_mul.cu and
+// csrc/scalar_mul_window.cu. csrc/point_add.cu, csrc/compress.cu,
+// csrc/msm.cu and csrc/scalar_mul.cu use the same formulas on 32-bit limbs
+// (fe25519_32.cuh).
 #pragma once
 
 #include "fe25519.cuh"
@@ -199,28 +201,6 @@ ROFL_HD ge ge_scalar_mul_window(const int32_t *k, int64_t k_lanes, int64_t k_lan
     acc = ge_add(acc, ge_window_lookup<W>(table, n, lane, digit));
   }
   return acc;
-}
-
-// Ristretto encode (RFC 9496 4.3.2) -> canonical limbs.
-ROFL_HD fe ristretto_compress(const ge &p) {
-  fe u1 = fe_mul(fe_add(p.z, p.y), fe_sub(p.z, p.y));
-  fe u2 = fe_mul(p.x, p.y);
-  fe inv_sqrt;
-  fe_sqrt_ratio_m1(fe_one(), fe_mul(u1, fe_sqr(u2)), inv_sqrt);
-  fe den1 = fe_mul(inv_sqrt, u1);
-  fe den2 = fe_mul(inv_sqrt, u2);
-  fe z_inv = fe_mul(fe_mul(den1, den2), p.t);
-  fe sqrt_m1 = fe_const_sqrt_m1();
-  fe ix0 = fe_mul(p.x, sqrt_m1);
-  fe iy0 = fe_mul(p.y, sqrt_m1);
-  fe enchanted = fe_mul(den1, fe_const_invsqrt_a_minus_d());
-  bool rotate = fe_is_negative(fe_mul(p.t, z_inv));
-  fe x = fe_select(rotate, iy0, p.x);
-  fe y = fe_select(rotate, ix0, p.y);
-  fe den_inv = fe_select(rotate, enchanted, den2);
-  y = fe_select(fe_is_negative(fe_mul(x, z_inv)), fe_neg(y), y);
-  fe s = fe_cabs(fe_mul(den_inv, fe_sub(p.z, y)));
-  return fe_canon(s);
 }
 
 // Ristretto decode (RFC 9496 4.3.1) from field limbs s. Returns validity:

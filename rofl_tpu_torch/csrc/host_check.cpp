@@ -62,11 +62,26 @@ void host_fe_op(int op, const int32_t *a, const int32_t *b, int32_t *out,
   }
 }
 
+// csrc/point_add.cu's lane: the 32-bit ge_add of fe25519_32.cuh.
 void host_point_add(const int32_t *px, const int32_t *py, const int32_t *pz,
                     const int32_t *pt, int p_lanes, const int32_t *qx,
                     const int32_t *qy, const int32_t *qz, const int32_t *qt,
                     int q_lanes, int32_t *ox, int32_t *oy, int32_t *oz, int32_t *ot,
                     int n) {
+  namespace f = rofl32;
+  for (int lane = 0; lane < n; ++lane) {
+    const f::ge p = f::ge_load16(px, py, pz, pt, p_lanes, p_lanes == 1 ? 0 : lane);
+    const f::ge q = f::ge_load16(qx, qy, qz, qt, q_lanes, q_lanes == 1 ? 0 : lane);
+    f::ge_store16(ox, oy, oz, ot, n, lane, f::ge_add(p, q));
+  }
+}
+
+// The 16-bit ge_add of ge25519.cuh, under the shared and windowed ladders.
+void host_point_add16(const int32_t *px, const int32_t *py, const int32_t *pz,
+                      const int32_t *pt, int p_lanes, const int32_t *qx,
+                      const int32_t *qy, const int32_t *qz, const int32_t *qt,
+                      int q_lanes, int32_t *ox, int32_t *oy, int32_t *oz, int32_t *ot,
+                      int n) {
   for (int lane = 0; lane < n; ++lane) {
     ge p = load_point(px, py, pz, pt, p_lanes, p_lanes == 1 ? 0 : lane);
     ge q = load_point(qx, qy, qz, qt, q_lanes, q_lanes == 1 ? 0 : lane);
@@ -82,10 +97,12 @@ void host_point_double(const int32_t *px, const int32_t *py, const int32_t *pz,
   }
 }
 
+// csrc/compress.cu's lane: rofl32::ristretto_compress.
 void host_compress(const int32_t *px, const int32_t *py, const int32_t *pz,
                    const int32_t *pt, int32_t *out, int n) {
+  namespace f = rofl32;
   for (int lane = 0; lane < n; ++lane) {
-    fe_store(out, n, lane, ristretto_compress(load_point(px, py, pz, pt, n, lane)));
+    f::fe_store16(out, n, lane, f::ristretto_compress(f::ge_load16(px, py, pz, pt, n, lane)));
   }
 }
 
@@ -180,19 +197,28 @@ int host_scalar_mul_window(int window, const int32_t *k, int k_lanes, const int3
 
 // op on the 32-bit field of fe25519_32.cuh, operands and result in the
 // (16, n) storage: 0 add, 1 sub, 2 mul, 3 sqr(a), 4 neg(a), 5 a as loaded
-// and stored (the packing of two 16-bit limbs a word).
-void host_fe32_op(int op, const int32_t *a, const int32_t *b, int32_t *out, int n) {
+// and stored (the packing of two 16-bit limbs a word), 6 canon(a),
+// 7 is_negative(a) (as the value 0 or 1), 8 cabs(a), 9 sqrt_ratio_m1(a, b);
+// flag[lane] is its was_square, 0 for the other ops.
+void host_fe32_op(int op, const int32_t *a, const int32_t *b, int32_t *out, int32_t *flag,
+                  int n) {
   namespace f = rofl32;
   for (int lane = 0; lane < n; ++lane) {
     f::fe x = f::fe_load16(a, n, lane), y = f::fe_load16(b, n, lane), r = x;
+    int was_square = 0;
     switch (op) {
       case 0: r = f::fe_add(x, y); break;
       case 1: r = f::fe_sub(x, y); break;
       case 2: r = f::fe_mul(x, y); break;
       case 3: r = f::fe_sqr(x); break;
       case 4: r = f::fe_neg(x); break;
+      case 6: r = f::fe_canon(x); break;
+      case 7: r = f::fe_zero(); r.v[0] = f::fe_is_negative(x) ? 1u : 0u; break;
+      case 8: r = f::fe_cabs(x); break;
+      case 9: was_square = f::fe_sqrt_ratio_m1(x, y, r) ? 1 : 0; break;
     }
     f::fe_store16(out, n, lane, r);
+    flag[lane] = was_square;
   }
 }
 

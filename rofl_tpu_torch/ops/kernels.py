@@ -30,17 +30,20 @@ ladder, csrc/scalar_mul.cu), and have no switch for the window.
 
 Each is CUDA C++ for sm_90a, one lane per thread (the MSM: a Pippenger
 over a block's terms a thread, see ``csrc/msm.cu``), sharing the field,
-point and scalar device headers ``csrc/fe25519.cuh``, ``csrc/ge25519.cuh``
-and ``csrc/sc25519.cuh`` (16-bit limbs), and ``csrc/fe25519_32.cuh`` (32-bit
-limbs, under ``scalar_mul`` and the MSMs). The sources have
+point and scalar device headers ``csrc/fe25519_32.cuh`` (32-bit limbs, under
+``point_add``, ``compress``, ``scalar_mul`` and the MSMs),
+``csrc/fe25519.cuh`` and ``csrc/ge25519.cuh`` (16-bit limbs, under
+``point_double``, ``decompress`` and the shared and windowed ladders) and
+``csrc/sc25519.cuh`` (the scalar kernels). The sources have
 a plain C interface and are compiled by ``nvcc`` at first use, one process per
 source, all started together, into ``build/rofl_tpu_torch/`` beside the
 package, and loaded with ``ctypes``. A build or launch failure raises.
 
 A wrapper takes (16, N) int32 limb tensors (a point is four of them). For a
-tensor on the card it launches its kernel and adds one to ``LAUNCHES``; for a
-tensor on the CPU it calls the plain version (``*_ref``), which is built on
-``ops/fe.py`` and ``ops/sc.py`` and is what tests and ``chip_smoke.py`` hold the kernel against.
+tensor on the card it launches its kernel, adds one to ``LAUNCHES`` and N to
+``LANES``; for a tensor on the CPU it calls the plain version (``*_ref``),
+which is built on ``ops/fe.py`` and ``ops/sc.py`` and is what tests and
+``chip_smoke.py`` hold the kernel against.
 Nothing of the TPU wrappers' canonical lane counts, chunking or identity
 padding is carried: a kernel takes any N >= 1 and guards its tail threads.
 """
@@ -86,6 +89,10 @@ _HEADERS = ("fe25519.cuh", "ge25519.cuh", "sc25519.cuh", "fe25519_32.cuh")
 
 # Launch counts: a wrapper adds one where it launches its kernel, nowhere else.
 LAUNCHES = {name: 0 for name in KERNEL_SOURCES}
+# Lanes launched, at the same place: the sum of N over a kernel's launches
+# (the MSMs: their terms), so that a launch of 50 000 lanes and one of 2
+# weigh what they do.
+LANES = {name: 0 for name in KERNEL_SOURCES}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -178,7 +185,9 @@ def build_kernels() -> dict:
     return _functions
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
+def _launch(name: str, device: torch.device, lanes: int, *args) -> None:
+    """Launch kernel `name` on `lanes` lanes (its N) with the C arguments
+    `args`, on the current stream of `device`, and count it."""
     fn = build_kernels()[_ENTRY_POINTS.get(name, name)]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -186,6 +195,7 @@ def _launch(name: str, device: torch.device, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
     LAUNCHES[name] += 1
+    LANES[name] += lanes
 
 
 def _check_coords(what: str, coords, device: torch.device, lanes: tuple) -> None:
@@ -255,7 +265,7 @@ def point_add(p, q):
     if any(c.shape[1] != pl for c in p) or any(c.shape[1] != ql for c in q):
         raise ValueError("point_add: the coordinates of one point differ in lanes")
     out = _empty_coords(4, n, device)
-    _launch("point_add", device,
+    _launch("point_add", device, n,
             *[c.data_ptr() for c in p], pl, *[c.data_ptr() for c in q], ql,
             *[c.data_ptr() for c in out], n)
     return tuple(out)
@@ -285,7 +295,7 @@ def point_double(p):
     n = p[0].shape[-1]
     _check_coords("point_double", p, device, (n,))
     out = _empty_coords(4, n, device)
-    _launch("point_double", device,
+    _launch("point_double", device, n,
             *[c.data_ptr() for c in p], *[c.data_ptr() for c in out], n)
     return tuple(out)
 
@@ -328,7 +338,7 @@ def compress(p):
     n = p[0].shape[-1]
     _check_coords("compress", p, device, (n,))
     (out,) = _empty_coords(1, n, device)
-    _launch("compress", device, *[c.data_ptr() for c in p], out.data_ptr(), n)
+    _launch("compress", device, n, *[c.data_ptr() for c in p], out.data_ptr(), n)
     return out
 
 
@@ -374,7 +384,7 @@ def decompress(s):
     _check_coords("decompress", (s,), device, (n,))
     out = _empty_coords(4, n, device)
     valid = torch.empty((n,), dtype=torch.bool, device=device)
-    _launch("decompress", device, s.data_ptr(), *[c.data_ptr() for c in out],
+    _launch("decompress", device, n, s.data_ptr(), *[c.data_ptr() for c in out],
             valid.data_ptr(), n)
     return tuple(out), valid
 
@@ -403,7 +413,7 @@ def sc_reduce_wide(byte_cols):
             f"{tuple(byte_cols.shape)} {byte_cols.dtype}")
     n = byte_cols.shape[1]
     (out,) = _empty_coords(1, n, device)
-    _launch("sc_reduce_wide", device, byte_cols.data_ptr(), out.data_ptr(), n)
+    _launch("sc_reduce_wide", device, n, byte_cols.data_ptr(), out.data_ptr(), n)
     return out
 
 
@@ -450,7 +460,7 @@ def _sc_binary(name: str, plain, a, b):
     _check_coords(f"{name} a", (a,), device, (n, 1))
     _check_coords(f"{name} b", (b,), device, (n, 1))
     (out,) = _empty_coords(1, n, device)
-    _launch(name, device, a.data_ptr(), a.shape[1], b.data_ptr(), b.shape[1],
+    _launch(name, device, n, a.data_ptr(), a.shape[1], b.data_ptr(), b.shape[1],
             out.data_ptr(), n)
     return out
 
@@ -510,7 +520,7 @@ def scalar_mul(k, p):
     _check_coords("scalar_mul p", p, device, (n,))
     _check_coords("scalar_mul k", (k,), device, (n, 1))
     out = _empty_coords(4, n, device)
-    _launch("scalar_mul", device, k.data_ptr(), k.shape[1],
+    _launch("scalar_mul", device, n, k.data_ptr(), k.shape[1],
             *[c.data_ptr() for c in p], *[c.data_ptr() for c in out], n)
     return tuple(out)
 
@@ -616,7 +626,7 @@ def _msm(wrapper: str, k, p, group: int):
     digit_rows = torch.empty((MSM_DIGITS, k.shape[1]), dtype=torch.int8, device=device)
     partials = torch.empty((n_groups * slices * MSM_DIGITS, 32), dtype=fe.DTYPE, device=device)
     out = _empty_coords(4, n_groups, device)
-    _launch(wrapper, device, k.data_ptr(), k.shape[1], *[c.data_ptr() for c in p], n, group,
+    _launch(wrapper, device, n, k.data_ptr(), k.shape[1], *[c.data_ptr() for c in p], n, group,
             slices, digit_rows.data_ptr(), partials.data_ptr(), *[c.data_ptr() for c in out])
     return tuple(out)
 
@@ -686,7 +696,7 @@ def shared_scalar_mul(k, p):
     _check_coords("shared_scalar_mul p", p, device, (n,))
     limbs = _shared_scalar_limbs(k)  # on the host: the kernel takes it by value
     out = _empty_coords(4, n, device)
-    _launch("shared_scalar_mul", device, limbs.ctypes.data, *[c.data_ptr() for c in p],
+    _launch("shared_scalar_mul", device, n, limbs.ctypes.data, *[c.data_ptr() for c in p],
             *[c.data_ptr() for c in out], n)
     return tuple(out)
 
@@ -746,6 +756,6 @@ def scalar_mul_window(k, p, window: int):
     _check_coords("scalar_mul_window k", (k,), device, (n, 1))
     table = torch.empty(((1 << window) * 4 * NLIMB * n,), dtype=fe.DTYPE, device=device)
     out = _empty_coords(4, n, device)
-    _launch("scalar_mul_window", device, window, k.data_ptr(), k.shape[1],
+    _launch("scalar_mul_window", device, n, window, k.data_ptr(), k.shape[1],
             *[c.data_ptr() for c in p], table.data_ptr(), *[c.data_ptr() for c in out], n)
     return tuple(out)

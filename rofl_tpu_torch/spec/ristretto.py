@@ -90,6 +90,14 @@ class RistrettoPoint:
 
     def compress(self) -> bytes:
         """Ristretto encoding (RFC 9496 §4.3.2), 32 bytes."""
+        return F.to_bytes(self._encode()[0])
+
+    def encode_selects(self) -> tuple[bool, bool]:
+        """The encoding's two selects on this representative: (rotate,
+        negate y). The batched encoders compute both sides of each."""
+        return self._encode()[1:]
+
+    def _encode(self) -> tuple[int, bool, bool]:
         X, Y, Z, T = self.X, self.Y, self.Z, self.T
         u1 = (Z + Y) * (Z - Y) % P
         u2 = X * Y % P
@@ -105,10 +113,10 @@ class RistrettoPoint:
             x, y, den_inv = iy0, ix0, enchanted_denominator
         else:
             x, y, den_inv = X, Y, den2
-        if F.is_negative(x * z_inv % P):
+        negate = F.is_negative(x * z_inv % P)
+        if negate:
             y = (-y) % P
-        s = F.fabs(den_inv * ((Z - y) % P) % P)
-        return F.to_bytes(s)
+        return F.fabs(den_inv * ((Z - y) % P) % P), rotate, negate
 
     def is_identity(self) -> bool:
         return self.X == 0 and self.Y % P == self.Z % P

@@ -124,18 +124,122 @@ def test_point_add_and_double_on_host(lib):
         np.testing.assert_array_equal(canon(o), fe.to_numpy(fe.canonicalize(r)))
 
 
-def test_compress_on_host(lib):
+def test_point_add16_on_host(lib):
+    """The 16-bit ge_add of csrc/ge25519.cuh, which the shared and windowed
+    ladders still run, against the plain version, with q as one broadcast
+    lane on either side."""
     p, q = points()
     n = len(p)
+    pa, qa = coords_i32(curve.pack_points(p, "cpu")), coords_i32(curve.pack_points(q, "cpu"))
+    q1 = [np.ascontiguousarray(c[:, :1]) for c in qa]
+    for (a, a_lanes), (b, b_lanes) in (((pa, n), (qa, n)), ((pa, n), (q1, 1)),
+                                       ((q1, 1), (pa, n))):
+        out = [np.zeros((16, n), np.int32) for _ in range(4)]
+        lib.host_point_add16(*map(ptr, a), a_lanes, *map(ptr, b), b_lanes, *map(ptr, out), n)
+        ref = kernels.point_add_ref(tuple(torch.from_numpy(c) for c in a),
+                                    tuple(torch.from_numpy(c) for c in b))
+        for o, r in zip(out, ref):
+            np.testing.assert_array_equal(canon(o), fe.to_numpy(fe.canonicalize(r)))
+
+
+def weakly_reduced(coords):
+    """Each value v of (16, n) limbs as v + k p for the largest k that keeps
+    it below 2^256: the limbs the 32-bit kernels may leave."""
+    return [limbs_i32([v + (2**256 - 1 - v) // P * P for v in fe.unpack_scalars(c)])
+            for c in coords]
+
+
+def host_encodings(lib, coords):
+    """csrc/compress.cu's lane on (16, n) int32 coordinates, as uint32 limbs."""
+    n = coords[0].shape[1]
+    enc = np.full((16, n), -1, np.int32)
+    lib.host_compress(*map(ptr, coords), ptr(enc), n)
+    return enc.astype(np.uint32)
+
+
+def test_compress_on_host(lib):
+    p, q = points()
     # sums have Z != 1; P + (-P) is the identity in a non-trivial representation
     s = kernels.point_add_ref(tuple(curve.pack_points(p, "cpu")),
                               tuple(curve.pack_points(q, "cpu")))
-    sa = coords_i32(s)
-    enc = np.zeros((16, n), np.int32)
-    lib.host_compress(*map(ptr, sa), ptr(enc), n)
-    np.testing.assert_array_equal(enc.astype(np.uint32), fe.to_numpy(kernels.compress_ref(s)))
-    assert [bytes(r) for r in fe.to_bytes_array(enc)] == [
-        (a + b).compress() for a, b in zip(p, q)]
+    want = [(a + b).compress() for a, b in zip(p, q)]
+    for sa in (coords_i32(s), weakly_reduced(coords_i32(s))):
+        enc = host_encodings(lib, sa)
+        np.testing.assert_array_equal(
+            enc, fe.to_numpy(kernels.compress_ref(tuple(torch.from_numpy(c) for c in sa))))
+        assert [bytes(r) for r in fe.to_bytes_array(enc)] == want
+
+
+# The 4-torsion point (i, 0) and the 2-torsion point (0, -1): adding them
+# gives the four representatives of a Ristretto element, which between them
+# take both sides of the encoding's rotate and negate-y selects.
+TORSION = [SR.identity(), SR.RistrettoPoint(0, P - 1, 1, 0), SR.RistrettoPoint(SF.SQRT_M1, 0, 1, 0),
+           SR.RistrettoPoint(-SF.SQRT_M1, 0, 1, 0)]
+
+
+def compress_edge_points(lib, case):
+    """(16, n) int32 coordinates and the spec's encodings of one edge case
+    of csrc/compress.cu."""
+    from rofl_tpu_torch.spec import scalar as SS
+
+    p, q = points()
+    if case == "representatives":  # each side of both selects, in scaled representations
+        pts = [a + t for a in p[:8] + [SR.BASEPOINT] for t in TORSION]
+        assert {a.encode_selects() for a in pts} == {
+            (r, g) for r in (False, True) for g in (False, True)}
+        scale = [int.from_bytes(rng.bytes(32), "little") % (P - 1) + 1 for _ in pts]
+        coords = [limbs_i32([getattr(a, c) * k % P for a, k in zip(pts, scale)])
+                  for c in "XYZT"]
+        return coords, [a.compress() for a in pts]
+    if case == "identity_forms":  # (0 : s : s : 0), s = 2^256 - 1 among them, and the torsion
+        s = [1, 2**256 - 1, P + 1, 2**255] + [
+            int.from_bytes(rng.bytes(32), "little") % P or 1 for _ in range(4)]
+        coords = [limbs_i32(v) for v in ([0] * len(s), s, s, [0] * len(s))]
+        tors = coords_i32(curve.pack_points(TORSION, "cpu"))
+        coords = [np.concatenate([c, t], axis=1) for c, t in zip(coords, tors)]
+        return coords, [bytes(32)] * coords[0].shape[1]
+    if case == "weakly_reduced":  # limbs up to 2^16 - 1: values in [p, 2^256)
+        pts = p + [SR.BASEPOINT, -SR.BASEPOINT]
+        return weakly_reduced(coords_i32(curve.pack_points(pts, "cpu"))), [
+            a.compress() for a in pts]
+    if case == "point_add_outputs":  # csrc/point_add.cu's lane, P + (-P) among them
+        pa = coords_i32(curve.pack_points(p, "cpu"))
+        qs = q[:-1] + [-p[-1]]
+        qa = coords_i32(curve.pack_points(qs, "cpu"))
+        out = [np.zeros_like(c) for c in pa]
+        lib.host_point_add(*map(ptr, pa), len(p), *map(ptr, qa), len(p), *map(ptr, out), len(p))
+        return out, [(a + b).compress() for a, b in zip(p, qs)]
+    if case == "ladder_outputs":  # csrc/scalar_mul.cu's lane at 4 threads a block
+        ks = [0, 1, SS.L - 1, 2**256 - 1] + [
+            int.from_bytes(rng.bytes(32), "little") % SS.L for _ in range(len(p) - 4)]
+        pa = coords_i32(curve.pack_points(p, "cpu"))
+        out = [np.zeros_like(c) for c in pa]
+        lib.host_scalar_mul(ptr(limbs_i32(ks)), len(p), *map(ptr, pa), *map(ptr, out),
+                            len(p), 4)
+        return out, [a.scalar_mul(k % SS.L).compress() for a, k in zip(p, ks)]
+    # msm_outputs: csrc/msm.cu's three launches, 13 groups of 2 terms
+    pts = (p + q)[:26]
+    ks = [int.from_bytes(rng.bytes(32), "little") % SS.L for _ in pts]
+    pa = coords_i32(curve.pack_points(pts, "cpu"))
+    out = [np.zeros((16, 13), np.int32) for _ in range(4)]
+    lib.host_msm(ptr(limbs_i32(ks)), len(pts), *map(ptr, pa), len(pts), 2, 1, 4, *map(ptr, out))
+    return out, [(pts[2 * g].scalar_mul(ks[2 * g]) + pts[2 * g + 1].scalar_mul(ks[2 * g + 1]))
+                 .compress() for g in range(13)]
+
+
+@pytest.mark.parametrize("case", ["representatives", "identity_forms", "weakly_reduced",
+                                  "point_add_outputs", "ladder_outputs", "msm_outputs"])
+def test_compress_edges_on_host(lib, case):
+    """rofl32::ristretto_compress (csrc/compress.cu) against the plain
+    version and the spec, canonical and bit-equal: each side of the rotate
+    and negate-y selects, the identity as (0 : s : s : 0) and as the
+    torsion points, coordinates in [p, 2^256), and the limbs that the 32-bit
+    point_add, ladder and MSM leave."""
+    coords, want = compress_edge_points(lib, case)
+    enc = host_encodings(lib, coords)
+    np.testing.assert_array_equal(
+        enc, fe.to_numpy(kernels.compress_ref(tuple(torch.from_numpy(c) for c in coords))))
+    assert [bytes(r) for r in fe.to_bytes_array(enc)] == want
 
 
 def test_decompress_on_host(lib):
@@ -274,26 +378,38 @@ FIELD32_OPS = {
     "sqr": (3, lambda a, b: a * a % P),
     "neg": (4, lambda a, b: (-a) % P),
     "pack": (5, lambda a, b: a % P),
+    "canon": (6, lambda a, b: a % P),
+    "is_negative": (7, lambda a, b: int(SF.is_negative(a))),
+    "cabs": (8, lambda a, b: SF.fabs(a)),
+    "sqrt_ratio_m1": (9, lambda a, b: SF.sqrt_ratio_m1(a, b)[1]),
 }
 
 
 @pytest.mark.parametrize("name", sorted(FIELD32_OPS))
 def test_field32_op_on_host(lib, name):
-    """The 8 x 32-bit field of csrc/fe25519_32.cuh against Python's % on
-    every pairing of 0, 1, 19, 38, p-1, p, p+1, 2p-1, 2p, 2^255-1,
-    2^256-39, 2^256-38 and 2^256-1 and random values, read from and written
-    to the (16, n) storage of 16-bit limbs: outputs fully carried and below
-    2^256, the input itself for pack."""
+    """The 8 x 32-bit field of csrc/fe25519_32.cuh against Python's % and
+    spec/field.py on every pairing of 0, 1, 19, 38, p-1, p, p+1, 2p-1, 2p,
+    2^255-1, 2^256-39, 2^256-38 and 2^256-1 and random values, read from and
+    written to the (16, n) storage of 16-bit limbs: outputs fully carried and
+    below 2^256, the input itself for pack, the canonical value for canon,
+    0 or 1 for is_negative, and was_square beside the root for
+    sqrt_ratio_m1."""
     op, want = FIELD32_OPS[name]
     a, b = fe_inputs()
     a_np, b_np = limbs_i32(a), limbs_i32(b)
-    out = np.full_like(a_np, -1)
-    lib.host_fe32_op(op, ptr(a_np), ptr(b_np), ptr(out), len(a))
+    out, flag = np.full_like(a_np, -1), np.full(len(a), -1, np.int32)
+    lib.host_fe32_op(op, ptr(a_np), ptr(b_np), ptr(out), ptr(flag), len(a))
     assert out.min() >= 0 and out.max() <= 0xFFFF
     got = fe.unpack_scalars(out)
     assert [g % P for g in got] == [want(x, y) for x, y in zip(a, b)]
     if name == "pack":
         assert got == a
+    if name in ("canon", "is_negative"):
+        assert got == [want(x, y) for x, y in zip(a, b)]
+    if name == "sqrt_ratio_m1":
+        assert [bool(f) for f in flag] == [SF.sqrt_ratio_m1(x, y)[0] for x, y in zip(a, b)]
+    else:
+        assert not flag.any()
 
 
 def recoding_scalars(name):

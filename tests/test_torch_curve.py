@@ -207,3 +207,15 @@ def test_kernel_wrappers_use_the_plain_version_on_the_cpu():
         for a, b in zip(got, want):
             assert torch.equal(a, b.expand_as(a))
     assert tkernels.LAUNCHES == before
+
+
+def test_lane_counts_beside_the_launch_counts():
+    """kernels.LANES counts the lanes of the same launches as LAUNCHES, one
+    entry a kernel; CPU calls run the plain versions and leave both at 0."""
+    assert set(tkernels.LANES) == set(tkernels.LAUNCHES) == set(tkernels.KERNEL_SOURCES)
+    p, q = tuple(TA), tuple(TB)
+    tkernels.point_add(p, q)
+    tkernels.point_add(p, tuple(c[:, :1].contiguous() for c in q))
+    tkernels.compress(p)
+    assert all(v == 0 for v in tkernels.LAUNCHES.values())
+    assert all(v == 0 for v in tkernels.LANES.values())

@@ -63,7 +63,7 @@ def canonical_equal(got, want):
 @pytest.mark.parametrize("n", [1, 77, 1000])
 def test_kernels_equal_their_plain_versions(card, n):
     p, q = operands(n, card, seed=n)
-    before = dict(kernels.LAUNCHES)
+    before, lanes_before = dict(kernels.LAUNCHES), dict(kernels.LANES)
     assert canonical_equal(kernels.point_add(p, q), kernels.point_add_ref(p, q))
     q1 = tuple(c[:, :1].contiguous() for c in q)
     assert canonical_equal(kernels.point_add(p, q1), kernels.point_add_ref(p, q1))
@@ -88,10 +88,12 @@ def test_kernels_equal_their_plain_versions(card, n):
         assert torch.equal(kernel_fn(a, b), plain_fn(a, b))
         assert torch.equal(kernel_fn(a, b1), plain_fn(a, b1))
     torch.cuda.synchronize()
-    assert {k: kernels.LAUNCHES[k] - before[k] for k in before} == {
-        "point_add": 2, "point_double": 1, "compress": 1, "decompress": 1,
-        "sc_reduce_wide": 2, "sc_mul": 2, "sc_add": 2, "sc_sub": 2, "scalar_mul": 0,
-        "msm_flat": 0, "msm_groups": 0, "shared_scalar_mul": 0, "scalar_mul_window": 0}
+    launches = {"point_add": 2, "point_double": 1, "compress": 1, "decompress": 1,
+                "sc_reduce_wide": 2, "sc_mul": 2, "sc_add": 2, "sc_sub": 2, "scalar_mul": 0,
+                "msm_flat": 0, "msm_groups": 0, "shared_scalar_mul": 0, "scalar_mul_window": 0}
+    assert {k: kernels.LAUNCHES[k] - before[k] for k in before} == launches
+    assert {k: kernels.LANES[k] - lanes_before[k] for k in lanes_before} == {
+        k: v * n for k, v in launches.items()}
 
 
 @pytest.mark.parametrize("n", [1, 6, 77, 200])
