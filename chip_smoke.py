@@ -24,7 +24,14 @@ Phases:
            the torsion points, coordinates raised into [p, 2^256), at N = 1,
            77 and 50000, and what the 32-bit point_add (a broadcast lane on
            either side too), scalar_mul and msm_groups leave; point_add on
-           the same edge inputs
+           the same edge inputs, point_double on every input of compress
+  decompress_edges
+           decompress against its plain version (mask, canonical
+           coordinates, z as canonical 1) and its mask against the spec's
+           decoding of s mod p, before it is timed: s = 0, 1, p - 1, every s
+           in [p, 2^255), s with bit 255 set, odd s, non-squares, the
+           encodings whose y is 0 and valid ones, alone and tiled to N = 1,
+           77 and 50000
   kernels  point_add, point_double, compress, decompress, sc_reduce_wide,
            sc_mul, sc_add, sc_sub, scalar_mul, msm_flat, msm_groups,
            shared_scalar_mul, scalar_mul_window against their plain torch
@@ -92,6 +99,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -116,6 +124,12 @@ from rofl_tpu_torch.spec import ristretto as SR  # noqa: E402
 from rofl_tpu_torch.spec import scalar as SS  # noqa: E402
 from rofl_tpu_torch.spec.merlin import Transcript  # noqa: E402
 
+# The decompress edge inputs that the host tests and the tests on the card
+# hold; the module imports only the port's spec.
+sys.path.insert(1, str(Path(__file__).resolve().parent / "tests"))
+from torch_port_edges import (  # noqa: E402
+    DECOMPRESS_EDGE_CASES, decompress_edges, spec_decompress)
+
 DEVICE = "cuda"
 D = 50000
 N_CLIENTS = 4
@@ -135,17 +149,21 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 2
 
 # 32-bit multiply-adds per lane, counted for the cheapest layout the card
-# allows (point_add, compress, scalar_mul and the MSMs run on it; point_double,
-# decompress and the shared and windowed ladders keep 16-bit limbs, 256 per
+# allows (point_add, point_double, compress, decompress, scalar_mul and the
+# MSMs run on it; the shared and windowed ladders keep 16-bit limbs, 256 per
 # product): with 8 limbs of 32 bits a 255-bit product is 64 wide multiplies,
 # each a low and a high 32-bit multiply-add, so 128, and a squaring is 36
 # wide multiplies, 72.
-# Field operations counted from the formulas in csrc/ge25519.cuh:
+# Field operations the functions need, from the formulas in csrc/fe25519_32.cuh:
 #   add        9 products
 #   double     4 products + 4 squarings
-#   sqrt_ratio 19 products + 254 squarings
-#   compress   sqrt_ratio + 13 products + 1 squaring
-#   decompress sqrt_ratio + 7 products + 3 squarings
+#   invsqrt    16 products + 254 squarings (sqrt_ratio_m1 at u = 1, the only
+#              u either encoding passes: no product by u)
+#   compress   invsqrt + 10 products + 1 squaring, and 3 products more
+#              (by sqrt(-1) twice and by 1/sqrt(a - d)) on the lanes that
+#              rotate only: counted for the share of the timed points that
+#              rotate (compress_rotated_share)
+#   decompress invsqrt + 8 products + 3 squarings
 # sc_reduce_wide folds 9, 5 and 2 words of 32 bits against the 4 words of
 # 2^252 - l (csrc/sc25519.cuh): 64 wide multiplies, 128 multiply-adds.
 # sc_mul is 64 wide multiplies for the 512-bit product and 64 for the folds:
@@ -162,8 +180,9 @@ INT32_OPS_PER_S = 67e12 / 2
 # bound is computed per call (shared_bound_ms) from the cheapest fixed-window or
 # NAF schedule for the scalar timed, not from the kernel's own 256 doublings and
 # one add a set bit; k = 0 and k = 1 are bound by their bytes.
-# Bytes per lane: (16, N) int32 arrays read and written once, the validity
-# byte of decompress, the 64 int32 byte columns of sc_reduce_wide.
+# Bytes per lane: (16, N) int32 arrays read and written once (the doubling
+# reads no T), the validity byte of decompress, the 64 int32 byte columns of
+# sc_reduce_wide.
 MUL, SQR = 128, 72
 LIMBS = 16 * 4
 POINT_ADD_MADDS = 9 * MUL
@@ -192,13 +211,13 @@ KERNEL_FACTS = {
         madds=9 * MUL, bytes=12 * LIMBS),
     "point_double": dict(
         source="rofl_tpu_torch/csrc/point_double.cu", replaces="rofl_tpu/ops/kernels.py:433",
-        madds=4 * MUL + 4 * SQR, bytes=8 * LIMBS),
+        madds=4 * MUL + 4 * SQR, bytes=7 * LIMBS),
     "compress": dict(
         source="rofl_tpu_torch/csrc/compress.cu", replaces="rofl_tpu/ops/kernels.py:639",
-        madds=32 * MUL + 255 * SQR, bytes=5 * LIMBS),
+        madds=26 * MUL + 255 * SQR, bytes=5 * LIMBS),  # + 3 * MUL a rotating lane
     "decompress": dict(
         source="rofl_tpu_torch/csrc/decompress.cu", replaces="rofl_tpu/ops/kernels.py:675",
-        madds=26 * MUL + 257 * SQR, bytes=5 * LIMBS + 1),
+        madds=24 * MUL + 257 * SQR, bytes=5 * LIMBS + 1),
     "sc_reduce_wide": dict(
         source="rofl_tpu_torch/csrc/sc_reduce_wide.cu",
         replaces="rofl_tpu/ops/kernels.py:1153", madds=128, bytes=64 * 4 + LIMBS),
@@ -332,13 +351,14 @@ def shared_bound_ms(n: int, k: int) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def bound_ms(name: str, n: int) -> tuple[float, str]:
+def bound_ms(name: str, n: int, madds: float | None = None) -> tuple[float, str]:
     """Least time the card could take for n lanes: every input read once and
-    every output written once over the memory rate, or the multiply-adds over
-    the int32 rate, whichever is larger."""
+    every output written once over the memory rate, or the multiply-adds
+    (a lane's, KERNEL_FACTS' unless given) over the int32 rate, whichever is
+    larger."""
     f = KERNEL_FACTS[name]
     t_bytes = n * f["bytes"] / HBM_BYTES_PER_S
-    t_ops = n * f["madds"] * 2 / INT32_OPS_PER_S
+    t_ops = n * (f["madds"] if madds is None else madds) * 2 / INT32_OPS_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -404,15 +424,29 @@ def test_points(n: int, rng: np.random.Generator):
     return p, q
 
 
+def compress_rotated_share(p) -> float:
+    """Share of the lanes of p whose encoding rotates (the spec's select on
+    each representative): only those need the products by sqrt(-1) and by
+    1/sqrt(a - d)."""
+    points = curve.unpack_points(curve.PointArray(*(c.cpu() for c in p)))
+    return sum(q.encode_selects()[0] for q in points) / len(points)
+
+
 def test_encodings(enc: torch.Tensor, rng: np.random.Generator) -> torch.Tensor:
     """Valid encodings with invalid ones mixed in: random field elements
-    (non-squares, negative t), odd s, and s = 0 and 1."""
+    below 2^255 (non-squares, negative t), odd s, random s with bit 255 set,
+    s in [p, 2^255), and s = 0 and 1."""
     n = enc.shape[1]
     s = enc.clone()
     rand = fe.to_tensor(rng.integers(0, 1 << 16, size=(16, n)), DEVICE)
+    high = rand.clone()
     rand[15] &= 0x7FFF
-    kind = torch.from_numpy(rng.integers(0, 4, size=n)).to(DEVICE)
-    s = torch.where((kind == 1).unsqueeze(0), rand, s)
+    high[15] |= 0x8000
+    above_p = fe.to_tensor(fe.pack_scalars(range(SF.P, 2**255)), DEVICE)
+    above_p = above_p[:, torch.from_numpy(rng.integers(0, 19, size=n)).to(DEVICE)]
+    kind = torch.from_numpy(rng.integers(0, 6, size=n)).to(DEVICE)
+    for k, v in ((1, rand), (4, high), (5, above_p)):
+        s = torch.where((kind == k).unsqueeze(0), v, s)
     s[0] = torch.where(kind == 2, s[0] ^ 1, s[0])
     s[:, -1] = 0
     s[0, -1] = n % 2
@@ -522,7 +556,8 @@ def check_compress_first(records: dict, hold, rng: np.random.Generator) -> None:
     on edge_inputs, alone and tiled to N = 1, 77 and 50000 lanes, and on what
     the 32-bit point_add (operands and a broadcast lane on either side),
     scalar_mul and msm_groups leave. point_add is held on the same edge
-    inputs. Ends the run at the first disagreement."""
+    inputs, and point_double on every input compress is held on. Ends the
+    run at the first disagreement."""
     cases = {}
 
     def check(name, p, want=None):
@@ -531,7 +566,11 @@ def check_compress_first(records: dict, hold, rng: np.random.Generator) -> None:
         hold("compress", (got,), (ref,))
         if want is not None:
             ok &= [bytes(r) for r in fe.to_bytes_array(got.cpu())] == want
-        cases[name] = {"lanes": got.shape[1], "match": bool(ok)}
+        doubled, doubled_ref = kernels.point_double(p), kernels.point_double_ref(p)
+        double_ok = max_abs_err(doubled, doubled_ref) == 0
+        hold("point_double", doubled, doubled_ref)
+        cases[name] = {"lanes": got.shape[1], "match": bool(ok),
+                       "point_double_match": bool(double_ok)}
         if not ok:
             records["compress"]["match"] = False
 
@@ -567,6 +606,42 @@ def check_compress_first(records: dict, hold, rng: np.random.Generator) -> None:
     if len(covered) < 4 or not all(c["match"] for c in cases.values()):
         sys.exit("compress disagrees with its plain version or the spec, or the edge inputs "
                  "missed a side of its selects: no later check may lean on it")
+    if not all(c["point_double_match"] for c in cases.values()):
+        sys.exit("point_double disagrees with its plain version on the edge inputs")
+
+
+def check_decompress_edges(hold, rng: np.random.Generator) -> None:
+    """decompress against its plain version (mask and canonical coordinates)
+    and the mask against the spec's decoding of s mod p (the raw bytes'
+    check s < p is the caller's), z as canonical 1: on each of the host
+    tests' edge cases (tests/torch_port_edges.py: s = 0, 1, p - 1; every s
+    in [p, 2^255); s with bit 255 set; odd s; non-squares; the encodings
+    whose y is 0; valid encodings), and on all of them tiled to N = 1, 77
+    and 50000 lanes. Ends the run at the first disagreement."""
+    cases = {}
+
+    def check(name, values, want):
+        s = fe.to_tensor(fe.pack_scalars(values), DEVICE)
+        (k_pt, k_valid), (r_pt, r_valid) = kernels.decompress(s), kernels.decompress_ref(s)
+        hold("decompress", k_pt + (k_valid,), r_pt + (r_valid,))
+        ok = (max_abs_err(k_pt + (k_valid,), r_pt + (r_valid,)) == 0
+              and k_valid.cpu().tolist() == want
+              and bool(torch.equal(k_pt[2], fe.ones((len(values),), DEVICE))))
+        cases[name] = {"lanes": len(values), "valid": int(k_valid.sum()), "match": bool(ok)}
+
+    by_case = {case: decompress_edges(case, rng) for case in DECOMPRESS_EDGE_CASES}
+    verdicts = {v: spec_decompress(v) is not None
+                for values in by_case.values() for v in values}
+    for name, values in by_case.items():
+        check(name, values, [verdicts[v] for v in values])
+    every = [v for values in by_case.values() for v in values]
+    for n in (1, 77, D):
+        tiled = [every[i % len(every)] for i in range(n)]
+        check(f"edges_at_{n}", tiled, [verdicts[v] for v in tiled])
+    torch.cuda.synchronize()
+    emit({"phase": "decompress_edges", "cases": cases})
+    if not all(c["match"] for c in cases.values()):
+        sys.exit("decompress disagrees with its plain version or the spec on the edge inputs")
 
 
 SC_KERNELS = {
@@ -588,15 +663,16 @@ def phase_kernels() -> dict:
         if err != 0:
             records[name]["match"] = False
 
-    def timed(name, n, kernel_fn, plain_fn=None, plain_ms=None, **kwargs):
+    def timed(name, n, kernel_fn, plain_fn=None, plain_ms=None, madds=None, **kwargs):
         records[name]["n"] = n
         records[name]["ms"] = device_ms(kernel_fn, **kwargs)
         records[name]["plain_ms"] = plain_ms if plain_fn is None else (
             1e3 * min(synced(plain_fn)[1] for _ in range(2)))
-        records[name]["bound_ms"], records[name]["bound_by"] = bound_ms(name, n)
+        records[name]["bound_ms"], records[name]["bound_by"] = bound_ms(name, n, madds)
         records[name]["library_ms"] = None
 
     check_compress_first(records, hold, rng)
+    check_decompress_edges(hold, rng)
 
     for n in CHECK_LANES:
         p, q = test_points(n, rng)
@@ -633,8 +709,11 @@ def phase_kernels() -> dict:
             }
             calls.update({name: (lambda f=fns[0]: f(a, b), lambda f=fns[1]: f(a, b))
                           for name, fns in SC_KERNELS.items()})
+            rotated = compress_rotated_share(p)
+            madds = {"compress": KERNEL_FACTS["compress"]["madds"] + 3 * MUL * rotated}
             for name, (kernel_fn, plain_fn) in calls.items():
-                timed(name, n, kernel_fn, plain_fn)
+                timed(name, n, kernel_fn, plain_fn, madds=madds.get(name))
+            records["compress"]["rotated_share"] = rotated
             records["decompress"]["valid_share"] = float(k_valid.float().mean())
 
     # scalar_mul: the kernel walks the bits from the top, the plain version
@@ -1524,7 +1603,7 @@ def main() -> None:
             "library_ms", "n", "checked_lanes")
     extra_keys = ("group", "window", "slices", "ms_at_131618", "plain_ms_at_131618",
                   "bound_ms_at_131618", "slices_at_131618", "ms_at_4n", "scalars", "windows",
-                  "scalar_mul_ms_same_inputs")
+                  "scalar_mul_ms_same_inputs", "rotated_share", "valid_share")
     rows = []
     for name, rec in records.items():
         by_path = {path: c["launches"][name] for path, c in counts_by_path.items()}

@@ -2,13 +2,15 @@
 // per thread.
 //
 // Replaces the TPU kernel rofl_tpu/ops/kernels.py _compress_kernel /
-// compress. Work per lane: one inverse square root (254 squarings and 19
-// products, 251 and 11 of them in the exponent chain), then 13 products and
-// a squaring more: 255 squarings and 32 products against 320 bytes moved. On 8 limbs of 32 bits (fe25519_32.cuh) that is
-// 255 x 36 + 32 x 64 = 11 228 wide multiplies a lane, each a low and a high
-// 32-bit multiply-add: 67 us of the H100's 33.5 TOP/s of int32 at
-// N = 50 000 against 4.8 us for the bytes. So the integer units bound it,
-// by a wide margin.
+// compress. Work per lane: one inverse square root (254 squarings and 16
+// products, 251 and 11 of them in the exponent chain), then 10 products and
+// a squaring more, and 3 products on the lanes whose encoding rotates (the
+// kernel selects between both sides, so it does them on every lane):
+// 255 squarings and 26 to 29 products against 320 bytes moved. On 8 limbs of
+// 32 bits (fe25519_32.cuh) that is 255 x 36 + 26 x 64 = 10 844 to 11 036
+// wide multiplies a lane, each a low and a high 32-bit multiply-add: 65 to
+// 66 us of the H100's 33.5 TOP/s of int32 at N = 50 000 against 4.8 us for
+// the bytes. So the integer units bound it, by a wide margin.
 //
 // Design: the chain is one dependent sequence a lane, so its latency shows
 // unless many warps share an SM. The point and every intermediate stay in

@@ -3,9 +3,8 @@
 // Device counterpart of rofl_tpu_torch/ops/fe.py and the replacement of the
 // in-kernel field helpers of the TPU package (rofl_tpu/ops/kernels.py
 // f_mul, f_sqr, f_norm, f_canon, f_sqrt_ratio_m1, ...) under the curve
-// kernels still on 16-bit limbs: csrc/point_double.cu, csrc/decompress.cu,
-// csrc/shared_scalar_mul.cu and csrc/scalar_mul_window.cu (the others run on
-// fe25519_32.cuh).
+// kernels still on 16-bit limbs: csrc/shared_scalar_mul.cu and
+// csrc/scalar_mul_window.cu (the others run on fe25519_32.cuh).
 //
 // Representation: 16 limbs of 16 bits in 32-bit registers, weakly reduced in
 // [0, 2^256), the same as the tensors outside the kernels, so loads and
@@ -58,12 +57,8 @@ ROFL_HD fe fe_one() {
   return r;
 }
 
-// Edwards d, 2d, sqrt(-1) and 1/sqrt(a-d): spec/field.py D, D2, SQRT_M1,
-// INVSQRT_A_MINUS_D as little-endian 16-bit limbs.
-ROFL_HD fe fe_const_d() {
-  return fe{{0x78a3, 0x1359, 0x4dca, 0x75eb, 0xd8ab, 0x4141, 0x0a4d, 0x0070,
-             0xe898, 0x7779, 0x4079, 0x8cc7, 0xfe73, 0x2b6f, 0x6cee, 0x5203}};
-}
+// Edwards 2d and sqrt(-1): spec/field.py D2 and SQRT_M1 as little-endian
+// 16-bit limbs.
 ROFL_HD fe fe_const_d2() {
   return fe{{0xf159, 0x26b2, 0x9b94, 0xebd6, 0xb156, 0x8283, 0x149a, 0x00e0,
              0xd130, 0xeef3, 0x80f2, 0x198e, 0xfce7, 0x56df, 0xd9dc, 0x2406}};
@@ -71,10 +66,6 @@ ROFL_HD fe fe_const_d2() {
 ROFL_HD fe fe_const_sqrt_m1() {
   return fe{{0xa0b0, 0x4a0e, 0x1b27, 0xc4ee, 0xe478, 0xad2f, 0x1806, 0x2f43,
              0xd7a7, 0x3dfb, 0x0099, 0x2b4d, 0xdf0b, 0x4fc1, 0x2480, 0x2b83}};
-}
-ROFL_HD fe fe_const_invsqrt_a_minus_d() {
-  return fe{{0x40ea, 0x805d, 0xfdaa, 0x99c8, 0x72be, 0x5a41, 0x1617, 0x9d2f,
-             0xd840, 0xfe01, 0x7b91, 0x16c2, 0xfca2, 0xcfaf, 0x8905, 0x786c}};
 }
 
 // One sequential carry pass over 32-bit limbs; returns the carry out of
@@ -224,14 +215,6 @@ ROFL_HD bool fe_eq(const fe &a, const fe &b) {
   uint32_t acc = 0;
   ROFL_UNROLL
   for (int k = 0; k < NLIMB; ++k) acc |= ca.v[k] ^ cb.v[k];
-  return acc == 0;
-}
-
-ROFL_HD bool fe_is_zero(const fe &a) {
-  fe ca = fe_canon(a);
-  uint32_t acc = 0;
-  ROFL_UNROLL
-  for (int k = 0; k < NLIMB; ++k) acc |= ca.v[k];
   return acc == 0;
 }
 

@@ -1,6 +1,7 @@
 // GF(2^255-19) and Ristretto255 point arithmetic on 8 limbs of 32 bits, one
 // lane per CUDA thread: the arithmetic under csrc/point_add.cu,
-// csrc/compress.cu, csrc/msm.cu and csrc/scalar_mul.cu.
+// csrc/point_double.cu, csrc/compress.cu, csrc/decompress.cu, csrc/msm.cu and
+// csrc/scalar_mul.cu.
 //
 // csrc/fe25519.cuh keeps 16 limbs of 16 bits, so a product there is 256
 // 32x32->64-bit multiply-adds into 64-bit columns. Here a product is 64
@@ -62,7 +63,11 @@ ROFL_HD fe fe_one() {
   return r;
 }
 
-// Edwards 2d (spec/field.py D2).
+// Edwards d and 2d (spec/field.py D, D2).
+ROFL_HD fe fe_const_d() {
+  return fe{{0x135978a3u, 0x75eb4dcau, 0x4141d8abu, 0x00700a4du, 0x7779e898u, 0x8cc74079u,
+             0x2b6ffe73u, 0x52036ceeu}};
+}
 ROFL_HD fe fe_const_d2() {
   return fe{{0x26b2f159u, 0xebd69b94u, 0x8283b156u, 0x00e0149au, 0xeef3d130u, 0x198e80f2u,
              0x56dffce7u, 0x2406d9dcu}};
@@ -259,18 +264,20 @@ ROFL_HD fe fe_pow_p58(const fe &x) {
   return fe_mul(fe_sqr_n(t12, 2), x);
 }
 
-// FieldElement::sqrt_ratio_i (ops/fe.py sqrt_ratio_m1): returns was_square
-// and writes the non-negative root of u/v, or of i*u/v, to r.
-ROFL_HD bool fe_sqrt_ratio_m1(const fe &u, const fe &v, fe &r) {
+// FieldElement::invsqrt, sqrt_ratio_i(1, v) (ops/fe.py sqrt_ratio_m1 with
+// u = 1, the only u that compress and decompress pass): returns was_square
+// and writes the non-negative root of 1/v, or of i/v, to r. 16 products and
+// 254 squarings: u = 1 saves the products u * v^3, u * v^7 and -u * i of
+// the general form.
+ROFL_HD bool fe_invsqrt(const fe &v, fe &r) {
   const fe v3 = fe_mul(fe_sqr(v), v);
   const fe v7 = fe_mul(fe_sqr(v3), v);
-  r = fe_mul(fe_mul(u, v3), fe_pow_p58(fe_mul(u, v7)));
+  r = fe_mul(v3, fe_pow_p58(v7));
   const fe check = fe_mul(v, fe_sqr(r));
-  const fe u_neg = fe_neg(u);
   const fe sqrt_m1 = fe_const_sqrt_m1();
-  const bool correct_sign = fe_eq(check, u);
-  const bool flipped_sign = fe_eq(check, u_neg);
-  const bool flipped_sign_i = fe_eq(check, fe_mul(u_neg, sqrt_m1));
+  const bool correct_sign = fe_eq(check, fe_one());
+  const bool flipped_sign = fe_eq(check, fe_neg(fe_one()));
+  const bool flipped_sign_i = fe_eq(check, fe_neg(sqrt_m1));
   r = fe_select(flipped_sign || flipped_sign_i, fe_mul(r, sqrt_m1), r);
   r = fe_cabs(r);
   return correct_sign || flipped_sign;
@@ -390,7 +397,7 @@ ROFL_HD fe ristretto_compress(const ge &p) {
   const fe u1 = fe_mul(fe_add(p.z, p.y), fe_sub(p.z, p.y));
   const fe u2 = fe_mul(p.x, p.y);
   fe inv_sqrt;
-  fe_sqrt_ratio_m1(fe_one(), fe_mul(u1, fe_sqr(u2)), inv_sqrt);
+  fe_invsqrt(fe_mul(u1, fe_sqr(u2)), inv_sqrt);
   const fe den1 = fe_mul(inv_sqrt, u1);
   const fe den2 = fe_mul(inv_sqrt, u2);
   const fe z_inv = fe_mul(fe_mul(den1, den2), p.t);
@@ -401,6 +408,31 @@ ROFL_HD fe ristretto_compress(const ge &p) {
   const fe den_inv = fe_select(rotate, fe_mul(den1, fe_const_invsqrt_a_minus_d()), den2);
   y = fe_select(fe_is_negative(fe_mul(x, z_inv)), fe_neg(y), y);
   return fe_canon(fe_cabs(fe_mul(den_inv, fe_sub(p.z, y))));
+}
+
+// Ristretto decode (RFC 9496 4.3.1) of the field element s, the formula of
+// the TPU package's _decompress_kernel and kernels.decompress_ref. Returns
+// the validity: the ratio was square, t >= 0, y != 0 and s >= 0, each sign
+// and zero test on the canonical value, so that any s below 2^256 gives the
+// mask of s mod p. Whether the byte encoding is canonical (s < p) is the
+// caller's check on the raw bytes. z is canonical 1; x, y and t are weakly
+// reduced.
+ROFL_HD bool ristretto_decompress(const fe &s, ge &out) {
+  const fe one = fe_one();
+  const fe ss = fe_sqr(s);
+  const fe u1 = fe_sub(one, ss);
+  const fe u2 = fe_add(one, ss);
+  const fe u2_sqr = fe_sqr(u2);
+  const fe v = fe_sub(fe_neg(fe_mul(fe_const_d(), fe_sqr(u1))), u2_sqr);
+  fe inv_sqrt;
+  const bool was_square = fe_invsqrt(fe_mul(v, u2_sqr), inv_sqrt);
+  const fe den_x = fe_mul(inv_sqrt, u2);
+  const fe den_y = fe_mul(fe_mul(inv_sqrt, den_x), v);
+  out.x = fe_cabs(fe_mul(fe_add(s, s), den_x));
+  out.y = fe_mul(u1, den_y);
+  out.z = one;
+  out.t = fe_mul(out.x, out.y);
+  return was_square && !fe_is_negative(out.t) && !fe_is_zero(out.y) && !fe_is_negative(s);
 }
 
 // -- signed digits --------------------------------------------------------

@@ -1,12 +1,10 @@
 // Ristretto255 point arithmetic for one lane per CUDA thread, on top of
 // fe25519.cuh: extended twisted-Edwards coordinates (X:Y:Z:T), a = -1.
-// Same formulas as the TPU package's p_add / p_double / _decompress_kernel /
+// Same formulas as the TPU package's p_add / p_double /
 // _make_smul_window_kernel / _shared_mul_kernel (rofl_tpu/ops/kernels.py)
 // and the plain versions in rofl_tpu_torch/ops/kernels.py, under
-// csrc/point_double.cu, csrc/decompress.cu, csrc/shared_scalar_mul.cu and
-// csrc/scalar_mul_window.cu. csrc/point_add.cu, csrc/compress.cu,
-// csrc/msm.cu and csrc/scalar_mul.cu use the same formulas on 32-bit limbs
-// (fe25519_32.cuh).
+// csrc/shared_scalar_mul.cu and csrc/scalar_mul_window.cu. The other point
+// kernels use the same formulas on 32-bit limbs (fe25519_32.cuh).
 #pragma once
 
 #include "fe25519.cuh"
@@ -201,28 +199,6 @@ ROFL_HD ge ge_scalar_mul_window(const int32_t *k, int64_t k_lanes, int64_t k_lan
     acc = ge_add(acc, ge_window_lookup<W>(table, n, lane, digit));
   }
   return acc;
-}
-
-// Ristretto decode (RFC 9496 4.3.1) from field limbs s. Returns validity:
-// the ratio was square, t >= 0, y != 0, s >= 0. Canonicality of the byte
-// encoding (s < p) is the caller's check on the raw bytes. z is canonical 1.
-ROFL_HD bool ristretto_decompress(const fe &s, ge &out) {
-  fe ss = fe_sqr(s);
-  fe one = fe_one();
-  fe u1 = fe_sub(one, ss);
-  fe u2 = fe_add(one, ss);
-  fe u2_sqr = fe_sqr(u2);
-  fe v = fe_sub(fe_neg(fe_mul(fe_const_d(), fe_sqr(u1))), u2_sqr);
-  fe inv_sqrt;
-  bool was_square = fe_sqrt_ratio_m1(one, fe_mul(v, u2_sqr), inv_sqrt);
-  fe den_x = fe_mul(inv_sqrt, u2);
-  fe den_y = fe_mul(fe_mul(inv_sqrt, den_x), v);
-  out.x = fe_cabs(fe_mul(fe_mul_small(s, 2), den_x));
-  out.y = fe_mul(u1, den_y);
-  out.z = one;
-  out.t = fe_mul(out.x, out.y);
-  return was_square && !fe_is_negative(out.t) && !fe_is_zero(out.y) &&
-         !fe_is_negative(s);
 }
 
 }  // namespace rofl

@@ -89,9 +89,21 @@ void host_point_add16(const int32_t *px, const int32_t *py, const int32_t *pz,
   }
 }
 
+// csrc/point_double.cu's lane: the 32-bit ge_double of fe25519_32.cuh.
 void host_point_double(const int32_t *px, const int32_t *py, const int32_t *pz,
                        const int32_t *pt, int32_t *ox, int32_t *oy, int32_t *oz,
                        int32_t *ot, int n) {
+  namespace f = rofl32;
+  for (int lane = 0; lane < n; ++lane) {
+    f::ge_store16(ox, oy, oz, ot, n, lane,
+                  f::ge_double(f::ge_load16(px, py, pz, pt, n, lane), true));
+  }
+}
+
+// The 16-bit ge_double of ge25519.cuh, under the shared and windowed ladders.
+void host_point_double16(const int32_t *px, const int32_t *py, const int32_t *pz,
+                         const int32_t *pt, int32_t *ox, int32_t *oy, int32_t *oz,
+                         int32_t *ot, int n) {
   for (int lane = 0; lane < n; ++lane) {
     store_point(ox, oy, oz, ot, n, lane, ge_double(load_point(px, py, pz, pt, n, lane)));
   }
@@ -106,12 +118,14 @@ void host_compress(const int32_t *px, const int32_t *py, const int32_t *pz,
   }
 }
 
+// csrc/decompress.cu's lane: rofl32::ristretto_decompress.
 void host_decompress(const int32_t *s, int32_t *ox, int32_t *oy, int32_t *oz,
                      int32_t *ot, uint8_t *valid, int n) {
+  namespace f = rofl32;
   for (int lane = 0; lane < n; ++lane) {
-    ge p;
-    valid[lane] = ristretto_decompress(fe_load(s, n, lane), p) ? 1 : 0;
-    store_point(ox, oy, oz, ot, n, lane, p);
+    f::ge p;
+    valid[lane] = f::ristretto_decompress(f::fe_load16(s, n, lane), p) ? 1 : 0;
+    f::ge_store16(ox, oy, oz, ot, n, lane, p);
   }
 }
 
@@ -198,8 +212,8 @@ int host_scalar_mul_window(int window, const int32_t *k, int k_lanes, const int3
 // op on the 32-bit field of fe25519_32.cuh, operands and result in the
 // (16, n) storage: 0 add, 1 sub, 2 mul, 3 sqr(a), 4 neg(a), 5 a as loaded
 // and stored (the packing of two 16-bit limbs a word), 6 canon(a),
-// 7 is_negative(a) (as the value 0 or 1), 8 cabs(a), 9 sqrt_ratio_m1(a, b);
-// flag[lane] is its was_square, 0 for the other ops.
+// 7 is_negative(a) (as the value 0 or 1), 8 cabs(a), 9 invsqrt(a), that is
+// sqrt_ratio_m1(1, a); flag[lane] is its was_square, 0 for the other ops.
 void host_fe32_op(int op, const int32_t *a, const int32_t *b, int32_t *out, int32_t *flag,
                   int n) {
   namespace f = rofl32;
@@ -215,7 +229,7 @@ void host_fe32_op(int op, const int32_t *a, const int32_t *b, int32_t *out, int3
       case 6: r = f::fe_canon(x); break;
       case 7: r = f::fe_zero(); r.v[0] = f::fe_is_negative(x) ? 1u : 0u; break;
       case 8: r = f::fe_cabs(x); break;
-      case 9: was_square = f::fe_sqrt_ratio_m1(x, y, r) ? 1 : 0; break;
+      case 9: was_square = f::fe_invsqrt(x, r) ? 1 : 0; break;
     }
     f::fe_store16(out, n, lane, r);
     flag[lane] = was_square;

@@ -31,9 +31,9 @@ ladder, csrc/scalar_mul.cu), and have no switch for the window.
 Each is CUDA C++ for sm_90a, one lane per thread (the MSM: a Pippenger
 over a block's terms a thread, see ``csrc/msm.cu``), sharing the field,
 point and scalar device headers ``csrc/fe25519_32.cuh`` (32-bit limbs, under
-``point_add``, ``compress``, ``scalar_mul`` and the MSMs),
-``csrc/fe25519.cuh`` and ``csrc/ge25519.cuh`` (16-bit limbs, under
-``point_double``, ``decompress`` and the shared and windowed ladders) and
+``point_add``, ``point_double``, ``compress``, ``decompress``, ``scalar_mul``
+and the MSMs), ``csrc/fe25519.cuh`` and ``csrc/ge25519.cuh`` (16-bit limbs,
+under the shared and windowed ladders) and
 ``csrc/sc25519.cuh`` (the scalar kernels). The sources have
 a plain C interface and are compiled by ``nvcc`` at first use, one process per
 source, all started together, into ``build/rofl_tpu_torch/`` beside the

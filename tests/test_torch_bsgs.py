@@ -1,26 +1,25 @@
 """rofl_tpu_torch.ops.bsgs against rofl_tpu.ops.bsgs (JAX CPU path) and
 against known discrete logs. Tolerance: exact equality of limbs and masks.
 
-The JAX side compiles its whole walk per (m, max_it, lane count), so it is
-asked for one small configuration only: m = 128, n_bits = 8 (two giant
-steps) on 77 lanes. The longer walk (m = 64, four steps) is held against the
-known values."""
+The JAX side compiles its whole walk per (m, max_it, lane count) for minutes
+on JAX:CPU, so its walk is read from tests/data/torch_port_jax_kat.json
+(made and kept honest by tests/test_torch_jax_kat.py) for one small
+configuration: m = 128, n_bits = 8 (two giant steps) on 77 lanes. The longer
+walk (m = 64, four steps) is held against the known values."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
-from rofl_tpu.crypto import pedersen as jpedersen
 from rofl_tpu.ops import bsgs as jbsgs
-from rofl_tpu.ops import curve as jcurve
 from rofl_tpu_torch.crypto import pedersen as tpedersen
 from rofl_tpu_torch.ops import bsgs as tbsgs
 from rofl_tpu_torch.ops import fe as tfe
 from rofl_tpu_torch.ops import sc as tsc
 from rofl_tpu_torch.spec import field as SF
 from rofl_tpu_torch.spec import scalar as SS
-from torch_port_helpers import share_tables_with_jax
+from test_torch_jax_kat import load_kat
 
 torch.set_num_threads(1)  # tiny ops; the suite runs several workers side by side
 rng = np.random.default_rng(321)
@@ -31,8 +30,6 @@ LOGS = [0, 1, -1, 127, 128, 129, 255, 256, -127, -128, -129, -255, -256, 300, -3
         1000] + [int(v) for v in rng.integers(-256, 257, N - 16)]
 FOUND = [abs(v) <= 256 for v in LOGS]
 K_NP = tsc.pack_scalars(LOGS)
-
-share_tables_with_jax("base_B")
 
 
 def key_limbs():
@@ -98,13 +95,15 @@ def test_build_table_is_sorted_complete_and_memoised():
 
 
 def test_solve_equals_jax_solve():
-    """Negatives, 0, both ends of each giant step, and values out of range."""
+    """Negatives, 0, both ends of each giant step, and values out of range,
+    against the JAX walk on the same logs (the KAT's value limbs and found
+    mask)."""
+    kat = load_kat()["bsgs"]
+    assert (kat["logs"], kat["m"], kat["n_bits"]) == (LOGS, M, N_BITS)
     t_pts = tpedersen.pedersen_commit_no_blinding(tfe.to_tensor(K_NP, "cpu"))
-    j_pts = jpedersen.pedersen_commit_no_blinding(jnp.asarray(K_NP))
     t_val, t_ok = tbsgs.solve_discrete_log(t_pts, M, N_BITS)
-    j_val, j_ok = jbsgs.solve_discrete_log(j_pts, M, N_BITS)
-    np.testing.assert_array_equal(t_ok.numpy(), np.asarray(j_ok))
-    np.testing.assert_array_equal(tfe.to_numpy(t_val), np.asarray(j_val))
+    np.testing.assert_array_equal(t_ok.numpy(), np.asarray(kat["found"]))
+    np.testing.assert_array_equal(tfe.to_numpy(t_val), np.asarray(kat["values"], np.uint32))
     assert t_ok.tolist() == FOUND
     got = tsc.unpack_scalars(t_val)
     assert [g for g, f in zip(got, FOUND) if f] == [

@@ -18,6 +18,7 @@ import torch
 from rofl_tpu_torch.ops import curve, fe, kernels
 from rofl_tpu_torch.spec import field as SF
 from rofl_tpu_torch.spec import ristretto as SR
+from torch_port_edges import DECOMPRESS_EDGE_CASES, decompress_edges, spec_decompress
 
 P = SF.P
 torch.set_num_threads(1)  # tiny ops; the suite runs several workers side by side
@@ -118,10 +119,31 @@ def test_point_add_and_double_on_host(lib):
         ref = kernels.point_add_ref(tp, tuple(torch.from_numpy(c) for c in q_coords))
         for o, r in zip(out, ref):
             np.testing.assert_array_equal(canon(o), fe.to_numpy(fe.canonicalize(r)))
+    # csrc/point_double.cu's lane, on the points as packed and on their
+    # coordinates raised into [p, 2^256), as point_add's 32-bit output leaves them
+    for coords in (pa, weakly_reduced(pa)):
+        out = [np.zeros((16, n), np.int32) for _ in range(4)]
+        lib.host_point_double(*map(ptr, coords), *map(ptr, out), n)
+        assert 0 <= min(o.min() for o in out) and max(o.max() for o in out) <= 0xFFFF
+        ref = kernels.point_double_ref(tuple(torch.from_numpy(c) for c in coords))
+        for o, r in zip(out, ref):
+            np.testing.assert_array_equal(canon(o), fe.to_numpy(fe.canonicalize(r)))
+        got = curve.unpack_points(curve.PointArray(*[torch.from_numpy(o) for o in out]))
+        assert [g.compress() for g in got] == [a.double().compress() for a in p]
+
+
+def test_point_double16_on_host(lib):
+    """The 16-bit ge_double of csrc/ge25519.cuh, which the shared and
+    windowed ladders still run, against the plain version and the spec."""
+    p, _ = points()
+    n = len(p)
+    pa = coords_i32(curve.pack_points(p, "cpu"))
     out = [np.zeros((16, n), np.int32) for _ in range(4)]
-    lib.host_point_double(*map(ptr, pa), *map(ptr, out), n)
-    for o, r in zip(out, kernels.point_double_ref(tp)):
+    lib.host_point_double16(*map(ptr, pa), *map(ptr, out), n)
+    for o, r in zip(out, kernels.point_double_ref(tuple(torch.from_numpy(c) for c in pa))):
         np.testing.assert_array_equal(canon(o), fe.to_numpy(fe.canonicalize(r)))
+    got = curve.unpack_points(curve.PointArray(*[torch.from_numpy(o) for o in out]))
+    assert [g.compress() for g in got] == [a.double().compress() for a in p]
 
 
 def test_point_add16_on_host(lib):
@@ -264,6 +286,42 @@ def test_decompress_on_host(lib):
         np.testing.assert_array_equal(canon(o), fe.to_numpy(fe.canonicalize(r.expand(16, n))))
 
 
+@pytest.mark.parametrize("case", DECOMPRESS_EDGE_CASES)
+def test_decompress_edges_on_host(lib, case):
+    """rofl32::ristretto_decompress (csrc/decompress.cu) on edge values of
+    s below 2^256, against the plain version and the spec's decoding of
+    s mod p: the mask, the canonical coordinates, z stored as canonical 1
+    and every limb fully carried. The cases are those of
+    torch_port_edges.decompress_edges: s = 0, 1, p - 1; every s in
+    [p, 2^255); s with bit 255 set; odd s; non-squares; encodings whose y is
+    0; and valid encodings."""
+    values = decompress_edges(case, rng)
+    s = limbs_i32(values)
+    n = s.shape[1]
+    out = [np.full((16, n), -1, np.int32) for _ in range(4)]
+    valid = np.full(n, 7, np.uint8)
+    lib.host_decompress(ptr(s), *map(ptr, out), ptr(valid), n)
+    assert set(valid.tolist()) <= {0, 1}
+    assert 0 <= min(o.min() for o in out) and max(o.max() for o in out) <= 0xFFFF
+    np.testing.assert_array_equal(out[2], limbs_i32([1] * n))
+    ref_pt, ref_valid = kernels.decompress_ref(torch.from_numpy(s))
+    np.testing.assert_array_equal(valid.astype(bool), ref_valid.numpy())
+    for o, r in zip(out, ref_pt):
+        np.testing.assert_array_equal(canon(o), fe.to_numpy(fe.canonicalize(r.expand(16, n))))
+    want = [spec_decompress(v) for v in values]
+    assert valid.astype(bool).tolist() == [w is not None for w in want]
+    got = [fe.unpack_scalars(canon(o)) for o in out]
+    for lane, w in enumerate(want):
+        if w is not None:
+            assert [c[lane] for c in got] == [w.X, w.Y, 1, w.T]
+    expected = {"special": [True, False, False], "y_zero": [False] * n,
+                "odd": [False] * n, "non_squares": [False] * n, "valid": [True] * n}
+    if case in expected:
+        assert valid.astype(bool).tolist() == expected[case]
+    if case in ("above_p", "bit_255"):  # the mask is that of s mod p
+        assert 0 < valid.sum() < n
+
+
 def test_sc_reduce_wide_on_host(lib):
     from rofl_tpu_torch.spec import scalar as SS
 
@@ -381,7 +439,7 @@ FIELD32_OPS = {
     "canon": (6, lambda a, b: a % P),
     "is_negative": (7, lambda a, b: int(SF.is_negative(a))),
     "cabs": (8, lambda a, b: SF.fabs(a)),
-    "sqrt_ratio_m1": (9, lambda a, b: SF.sqrt_ratio_m1(a, b)[1]),
+    "sqrt_ratio_m1": (9, lambda a, b: SF.sqrt_ratio_m1(1, a)[1]),
 }
 
 
@@ -393,7 +451,8 @@ def test_field32_op_on_host(lib, name):
     written to the (16, n) storage of 16-bit limbs: outputs fully carried and
     below 2^256, the input itself for pack, the canonical value for canon,
     0 or 1 for is_negative, and was_square beside the root for
-    sqrt_ratio_m1."""
+    sqrt_ratio_m1, taken at u = 1 (fe_invsqrt, the only form the kernels
+    run)."""
     op, want = FIELD32_OPS[name]
     a, b = fe_inputs()
     a_np, b_np = limbs_i32(a), limbs_i32(b)
@@ -407,7 +466,7 @@ def test_field32_op_on_host(lib, name):
     if name in ("canon", "is_negative"):
         assert got == [want(x, y) for x, y in zip(a, b)]
     if name == "sqrt_ratio_m1":
-        assert [bool(f) for f in flag] == [SF.sqrt_ratio_m1(x, y)[0] for x, y in zip(a, b)]
+        assert [bool(f) for f in flag] == [SF.sqrt_ratio_m1(1, x)[0] for x in a]
     else:
         assert not flag.any()
 

@@ -184,14 +184,24 @@ def test_tree_sum_over_an_inner_axis():
 
 
 def test_single_lane():
-    t1, j1 = both([PTS_A[7]])
-    same_point(tcurve.add(t1, t1), jcurve.add(j1, j1))
-    same_point(tcurve.double(t1), jcurve.double(j1))
-    same(tcurve.compress(t1), jcurve.compress(j1))
+    """One lane through the port ((16, 1) coordinates, as a one-lane slice
+    gives them) against the JAX package's result for the same point, lane 7
+    of the N-lane calls that the tests above compile: a JAX lane does not
+    depend on the others, and one-lane JAX calls would compile every op
+    again."""
+    t1 = tcurve.pack_points([PTS_A[7]], "cpu")
+
+    def lane7(coords):
+        return tuple(np.asarray(c)[..., 7:8] for c in coords)
+
+    same_point(tcurve.add(t1, t1), lane7(jcurve.add(JA, JA)))
+    same_point(tcurve.double(t1), lane7(jcurve.double(JA)))
+    j_enc = jcurve.compress(JA)
+    same(tcurve.compress(t1), np.asarray(j_enc)[:, 7:8])
     t_pt, t_valid = tcurve.decompress(tcurve.compress(t1))
-    j_pt, j_valid = jcurve.decompress(jcurve.compress(j1))
-    same_point(t_pt, j_pt)
-    same(t_valid, j_valid)
+    j_pt, j_valid = jcurve.decompress(j_enc)
+    same_point(t_pt, lane7(j_pt))
+    same(t_valid, np.asarray(j_valid)[7:8])
 
 
 def test_kernel_wrappers_use_the_plain_version_on_the_cpu():

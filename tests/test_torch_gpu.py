@@ -14,7 +14,9 @@ import torch
 
 from rofl_tpu_torch.ops import curve, fe, kernels, sc
 from rofl_tpu_torch.spec import ristretto as SR
+from rofl_tpu_torch.spec import field as SF
 from rofl_tpu_torch.spec import scalar as SS
+from torch_port_edges import DECOMPRESS_EDGE_CASES, decompress_edges, spec_decompress
 
 pytestmark = pytest.mark.gpu
 
@@ -94,6 +96,71 @@ def test_kernels_equal_their_plain_versions(card, n):
     assert {k: kernels.LAUNCHES[k] - before[k] for k in before} == launches
     assert {k: kernels.LANES[k] - lanes_before[k] for k in lanes_before} == {
         k: v * n for k, v in launches.items()}
+
+
+@pytest.mark.parametrize("case", DECOMPRESS_EDGE_CASES)
+def test_decompress_kernel_on_edges(card, case):
+    """decompress on the host tests' edge values of s below 2^256
+    (torch_port_edges.decompress_edges), alone and tiled to 77 lanes: mask
+    and canonical coordinates equal to the plain version's, z as canonical
+    1, and the mask equal to the spec's decoding of s mod p."""
+    values = decompress_edges(case, np.random.default_rng(len(case)))
+    for lanes in (values, [values[i % len(values)] for i in range(77)]):
+        s = fe.to_tensor(fe.pack_scalars(lanes), card)
+        (k_pt, k_valid), (r_pt, r_valid) = kernels.decompress(s), kernels.decompress_ref(s)
+        assert canonical_equal(k_pt, r_pt) and torch.equal(k_valid, r_valid)
+        assert torch.equal(k_pt[2], fe.ones((len(lanes),), card))
+        assert k_valid.cpu().tolist() == [spec_decompress(v) is not None for v in lanes]
+
+
+def weakly_reduced(coords):
+    """Each value of (16, n) limbs raised by the largest multiple of p that
+    keeps it below 2^256."""
+    return tuple(fe.to_tensor(fe.pack_scalars(
+        [v + (2**256 - 1 - v) // SF.P * SF.P for v in fe.unpack_scalars(c)]), c.device)
+        for c in coords)
+
+
+@pytest.mark.parametrize("case", ["identity_forms", "weakly_reduced", "point_add_outputs",
+                                  "scalar_mul_outputs", "msm_outputs"])
+@pytest.mark.parametrize("n", [1, 77])
+def test_point_double_kernel_on_edges(card, case, n):
+    """point_double against its plain version and the spec on the identity
+    as (0 : s : s : 0) (every limb 2^16 - 1 among them), on coordinates
+    raised into [p, 2^256), and on what the 32-bit point_add, scalar_mul and
+    msm_groups leave."""
+    rng = np.random.default_rng(n)
+    p, q = operands(n, card, seed=n + 1)
+    pts = curve.unpack_points(curve.PointArray(*p))
+    if case == "identity_forms":
+        s = [[1, 2**256 - 1, SF.P + 1, 2**255][i % 4] for i in range(n)]
+        x = tuple(fe.to_tensor(fe.pack_scalars(v), card) for v in ([0] * n, s, s, [0] * n))
+        pts = [SR.identity()] * n
+    elif case == "weakly_reduced":
+        x = weakly_reduced(p)
+    elif case == "point_add_outputs":
+        x = kernels.point_add(p, q)
+        pts = [a + b for a, b in zip(pts, curve.unpack_points(curve.PointArray(*q)))]
+    elif case == "scalar_mul_outputs":
+        ks = ladder_scalars(n, rng)
+        x = kernels.scalar_mul(fe.to_tensor(fe.pack_scalars(ks), card), p)
+        pts = [a.scalar_mul(k % SS.L) for a, k in zip(pts, ks)]
+    else:
+        group = 1 if n == 1 else 7
+        ks = ladder_scalars(n // group * group, rng)
+        pp = tuple(c[:, :len(ks)].contiguous() for c in p)
+        x = kernels.msm_groups(fe.to_tensor(fe.pack_scalars(ks), card), pp, group)
+        sums = []
+        for g in range(0, len(ks), group):
+            acc = SR.identity()
+            for a, k in zip(pts[g:g + group], ks[g:g + group]):
+                acc = acc + a.scalar_mul(k % SS.L)
+            sums.append(acc)
+        pts = sums
+    got = kernels.point_double(x)
+    assert canonical_equal(got, kernels.point_double_ref(x))
+    assert [bytes(r) for r in curve.compress_to_bytes(curve.PointArray(*got))] == [
+        a.double().compress() for a in pts]
 
 
 @pytest.mark.parametrize("n", [1, 6, 77, 200])

@@ -10,7 +10,10 @@ to the protobuf runtime's; the KAT round deserializes and verifies in the
 port; the JAX package deserializes the port's bytes and its batched
 square-rand verifier accepts them (its range-proof and L2 verifiers run on the
 same round in tests/test_torch_range_proof_jax.py and
-tests/test_torch_l2_range_proof.py); the port's batched square-rand verifier
+tests/test_torch_l2_range_proof.py; the JAX verifiers compile for minutes on
+JAX:CPU, so their verdicts are read from tests/data/torch_port_jax_kat.json,
+made and kept honest by tests/test_torch_jax_kat.py, beside the SHA-256 of
+the bytes they were taken on); the port's batched square-rand verifier
 accepts an honest proof and refuses a tampered lane; ``EncNormData`` encodes
 as ``rofl_tpu.fl.proto`` does for empty fields and lengths above 127 and
 16 383; ``check_l2`` raises what the JAX one raises. One prove in this file. Tolerance: none (bytes, verdicts
@@ -22,7 +25,6 @@ import pytest
 import torch
 
 from rofl_tpu.crypto import l2_range_proof as JL2
-from rofl_tpu.crypto import sigma as JS
 from rofl_tpu.crypto.fp_codec import FpConfig as JFpConfig
 from rofl_tpu.fl import params as JP
 from rofl_tpu.fl import proto as pb
@@ -35,8 +37,8 @@ from rofl_tpu_torch.crypto.fp_codec import FpConfig
 from rofl_tpu_torch.fl import params as P
 from rofl_tpu_torch.fl import wire
 from rofl_tpu_torch.ops import fe, sc
+from test_torch_jax_kat import digest, load_kat as load_jax_kat
 from test_torch_l2_kat import load_kat
-from torch_port_helpers import share_tables_with_jax
 
 torch.set_num_threads(2)
 KAT = load_kat()
@@ -71,15 +73,14 @@ def test_the_kat_round_verifies_in_the_port():
 def test_the_jax_package_deserializes_the_port_bytes_and_verifies_their_square_rand_proofs(
         port_bytes):
     """The first of the three verifiers of the JAX package's
-    EncParamsL2.verify, on the port's round; the range proofs and the L2 sum
-    proof are verified by the JAX package in tests/test_torch_range_proof_jax.py
-    and tests/test_torch_l2_range_proof.py (each compiles for minutes on
-    JAX:CPU, too long for one file)."""
-    share_tables_with_jax("base_B", "base_H")
-    enc = JP.EncParamsL2.deserialize(port_bytes, JFP)
-    assert enc.serialize() == port_bytes
-    assert JS.square_rand_proof_verify_batched(enc.square_proofs, enc.enc_values,
-                                               np.random.default_rng(3))
+    EncParamsL2.verify, on the port's round (the KAT's verdict, taken on
+    bytes of the same digest, and whether the JAX package's serialize gave
+    them back); the range proofs and the L2 sum proof are verified by the
+    JAX package in tests/test_torch_range_proof_jax.py and
+    tests/test_torch_l2_range_proof.py."""
+    entry = load_jax_kat()["verdicts"]["square_rand_proofs_of_the_port_round"]
+    assert entry["sha256"] == digest(port_bytes)
+    assert entry["reserialized"] and entry["verdict"]
 
 
 def test_batched_square_rand_verify_accepts_honest_and_refuses_a_tampered_lane():

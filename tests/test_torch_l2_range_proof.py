@@ -8,17 +8,18 @@ bytes and sum-square commitment; the port verifies it against that
 commitment and refuses it against another one, and the JAX verifier accepts
 the port's proof and the L2 sum proof of the port's L2 round (the KAT round,
 which tests/test_torch_l2_params.py holds byte-equal to the port's
-``EncParamsL2.encrypt``) against Σ c_sq. One prove in this file. Tolerance: none (bytes and
-verdicts equal).
+``EncParamsL2.encrypt``) against Σ c_sq. The JAX verifier compiles for
+minutes on JAX:CPU, so its verdicts are read from
+tests/data/torch_port_jax_kat.json (``verdicts``: made and kept honest by
+tests/test_torch_jax_kat.py), each beside the SHA-256 of the bytes it was
+taken on, which the tests here hold equal to the port's. One prove in this
+file. Tolerance: none (bytes and verdicts equal).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from rofl_tpu.crypto import l2_range_proof as JL2
-from rofl_tpu.crypto import range_proof as JRP
-from rofl_tpu.spec import ristretto as JSR
 from rofl_tpu_torch import bindings as B
 from rofl_tpu_torch.crypto import l2_range_proof as L2
 from rofl_tpu_torch.crypto import pedersen
@@ -27,12 +28,21 @@ from rofl_tpu_torch.crypto.fp_codec import FpConfig
 from rofl_tpu_torch.fl import params as P
 from rofl_tpu_torch.ops import curve, sc
 from rofl_tpu_torch.spec import ristretto as SR
+from test_torch_jax_kat import verdict as jax_verdict
 from test_torch_l2_kat import load_kat
 
 torch.set_num_threads(2)
 KAT = load_kat()
 FP = FpConfig(*KAT["fp"])
 L2_RANGE = KAT["l2_value_range"]
+
+
+def round_sum_square(round_bytes: bytes) -> bytes:
+    """The compressed sum of the square commitments c_sq of an EncParamsL2
+    round, made by the port: what the round's L2 sum proof is verified
+    against."""
+    enc = P.EncParamsL2.deserialize(round_bytes, FP, "cpu")
+    return curve.compress_to_bytes(curve.tree_sum(enc.enc_values.c_sq))[0].tobytes()
 
 
 @pytest.fixture(scope="module")
@@ -61,14 +71,11 @@ def test_the_port_verifies_against_the_commitment_only(port_proof):
 
 def test_the_jax_package_verifies_the_port_proof(port_proof):
     proof, commit = port_proof
-    jproof = JRP.RangeProof.from_bytes(proof.to_bytes())
-    assert JL2.verify_rangeproof_l2(jproof, JSR.decompress(commit.compress()), L2_RANGE,
-                                    np.random.default_rng(4))
+    assert jax_verdict("l2_sum_proof_of_the_port", proof.to_bytes(), commit.compress())
 
 
 def test_the_jax_package_verifies_the_l2_sum_proof_of_the_port_round():
-    enc = P.EncParamsL2.deserialize(bytes.fromhex(KAT["params"]["serialized"]), FP, "cpu")
-    sum_sq = curve.compress_to_bytes(curve.tree_sum(enc.enc_values.c_sq))[0].tobytes()
-    jproof = JRP.RangeProof.from_bytes(enc.square_range_proof.to_bytes())
-    assert JL2.verify_rangeproof_l2(jproof, JSR.decompress(sum_sq), L2_RANGE,
-                                    np.random.default_rng(5))
+    round_bytes = bytes.fromhex(KAT["params"]["serialized"])
+    enc = P.EncParamsL2.deserialize(round_bytes, FP, "cpu")
+    assert jax_verdict("l2_sum_proof_of_the_port_round", enc.square_range_proof.to_bytes(),
+                       round_sum_square(round_bytes))

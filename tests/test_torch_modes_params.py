@@ -2,14 +2,18 @@
 EncParamsRangeCompressed, EncParamsL2Compressed, the dispatch, PlainParams,
 ``convert.py``) against the JAX package, on the CPU (plain versions).
 
-With the KAT's seeds (tests/data/torch_port_modes_kat.json, made by the JAX
-package: d = 7, 2 partitions, value range 8, L2 range 16) ``encrypt`` gives
-the KAT's ``serialize()`` bytes in each mode, at check_percentage 1.0 and, for
-the Range modes, 0.5, which also holds the hand-written protobuf envelopes to
-the protobuf runtime's; every KAT frame deserializes and serializes back to
-itself; the JAX package's deserialized objects carry across through
-``convert``. The verdicts, and the encrypts with a value out of range, are in
-tests/test_torch_modes_verdicts.py. Tolerance: none (bytes equal)."""
+The KAT (tests/data/torch_port_modes_kat.json, made by the JAX package:
+d = 7, 2 partitions, value range 8, L2 range 16) holds each mode's
+``serialize()`` bytes at check_percentage 1.0 and, for the Range modes, 0.5.
+Here every KAT frame deserializes and serializes back to itself, and the JAX
+package's deserialized objects carry across through ``convert``. The port's
+``encrypt`` (defined here) gives the KAT's bytes in
+tests/test_torch_modes_encrypt.py, which also holds the hand-written
+protobuf envelopes to the protobuf runtime's; the verdicts are in
+tests/test_torch_modes_verdicts.py and the encrypts with a value out of
+range in tests/test_torch_modes_out_of_range.py (each port encrypt is 15-50 s
+of plain torch on the CPU, so they are spread over files that run side by
+side). Tolerance: none (bytes equal)."""
 
 import numpy as np
 import pytest
@@ -61,12 +65,6 @@ def encrypt(values, case) -> bytes:
 
 def test_the_blinding_is_the_kats():
     assert sv.serialize_scalar_vec(blinding()).hex() == KAT["blinding"]
-
-
-@pytest.mark.parametrize("name", sorted(KAT["modes"]))
-def test_encrypt_gives_the_kat_bytes(name):
-    case = KAT["modes"][name]
-    assert encrypt(KAT["values"], case).hex() == case["serialized"]
 
 
 def all_frames():

@@ -7,9 +7,10 @@ modes at 0.5; the same with a value out of range) gets the verdict the JAX
 package gave it. The out-of-range frames keep the reference's hazard: the
 Range modes prove their rand proofs on the unclipped value, so their verdict
 depends on the mode and, below a check percentage of 1, on whether the lane
-is among those the range proofs cover; the port's encrypt gives the JAX
+is among those the range proofs cover (the port's encrypt gives the JAX
 package's bytes for such a value, unclipped m (EncRange) and clipped m
-(EncL2Compressed) alike. A flipped bit in a rand proof, in a compressed rand
+(EncL2Compressed) alike, in tests/test_torch_modes_out_of_range.py). A
+flipped bit in a rand proof, in a compressed rand
 proof and in a square proof is refused. Tolerance: none (verdicts and bytes
 equal)."""
 
@@ -22,7 +23,7 @@ from rofl_tpu_torch.crypto import sigma
 from rofl_tpu_torch.crypto.fp_codec import FpConfig
 from rofl_tpu_torch.fl import params as P
 from test_torch_modes_kat import load_kat
-from test_torch_modes_params import encrypt, without_autograd  # noqa: F401 (autouse)
+from test_torch_modes_params import without_autograd  # noqa: F401 (autouse)
 
 torch.set_num_threads(2)
 KAT = load_kat()
@@ -44,16 +45,6 @@ def test_the_port_accepts_the_jax_frames(name):
 def test_the_port_gives_the_jax_verdict_out_of_range(name):
     case = KAT["out_of_range"]["cases"][name]
     assert P.verify(decoded(case), np.random.default_rng(1)) == case["verifies"]
-
-
-@pytest.mark.parametrize("name", ["range", "l2_compressed"])
-def test_encrypt_out_of_range_gives_the_kat_bytes(name):
-    """The hazard kept from the reference: EncRange proves its rand proofs on
-    the unclipped value, EncL2Compressed on the clipped one."""
-    values = list(KAT["values"])
-    values[KAT["out_of_range"]["lane"]] = KAT["out_of_range"]["value"]
-    case = KAT["out_of_range"]["cases"][name]
-    assert encrypt(values, case).hex() == case["serialized"]
 
 
 def test_a_flipped_rand_proof_bit_is_refused():

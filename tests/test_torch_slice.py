@@ -4,28 +4,28 @@ extract_values. Every blob is byte-identical, the extracted sums are equal
 (tolerance 0.0), and a round whose blindings do not cancel fails extraction
 on both sides. Each package runs on the fixed-base tables it built itself.
 
-FpConfig(8, 3) keeps the default BSGS table small (m = 128, two giant
-steps), which is what the JAX side can compile on a CPU in reasonable time."""
+The JAX round compiles for minutes on JAX:CPU, so its blobs, sums and the
+error of its failed extraction are read from tests/data/torch_port_jax_kat.json
+(``slice``: made and kept honest by tests/test_torch_jax_kat.py, which runs
+the round below through ``rofl_tpu.bindings``). FpConfig(8, 3) keeps the
+default BSGS table small (m = 128, two giant steps)."""
 
 import numpy as np
-import jax.numpy as jnp
 import pytest
 import torch
 
-import rofl_tpu.bindings as JB
 import rofl_tpu_torch.bindings as TB
-from rofl_tpu.crypto import pedersen as jpedersen
-from rofl_tpu.crypto.fp_codec import FpConfig as JFpConfig
-from rofl_tpu.ops import curve as jcurve
 from rofl_tpu_torch.crypto import pedersen as tpedersen
 from rofl_tpu_torch.crypto import serde_vec as tsv
 from rofl_tpu_torch.crypto.fp_codec import FpConfig
 from rofl_tpu_torch.ops import bsgs as tbsgs
 from rofl_tpu_torch.ops import fe as tfe
+from test_torch_jax_kat import load_kat
 
 torch.set_num_threads(1)  # tiny ops; the suite runs several workers side by side
 N_CLIENTS, D = 3, 77
-T_FP, J_FP = FpConfig(8, 3), JFpConfig(8, 3)
+T_FP = FpConfig(8, 3)
+BLINDING_SEED = 31
 rng = np.random.default_rng(2718)
 # multiples of 2^-3 in [-10, 10]: the sum of three stays inside 8 bits
 BITS = rng.integers(-80, 81, size=(N_CLIENTS, D))
@@ -38,15 +38,18 @@ WANT = (BITS.sum(axis=0) / T_FP.scale).astype(np.float32)
 
 @pytest.fixture(scope="module")
 def round_blobs():
-    """Blindings, commitments and the sum from both packages, same rng seed."""
-    t_bl = TB.generate_cancelling_blindings(N_CLIENTS, D, np.random.default_rng(31), "cpu")
-    j_bl = JB.generate_cancelling_blindings(N_CLIENTS, D, np.random.default_rng(31))
+    """Blindings, commitments and the sum from the port, and the JAX
+    package's from the KAT, same rng seed."""
+    kat = load_kat()["slice"]
+    t_bl = TB.generate_cancelling_blindings(N_CLIENTS, D, np.random.default_rng(BLINDING_SEED),
+                                            "cpu")
     t_commits = [TB.commit(UPDATES[c], t_bl[c], T_FP, device="cpu") for c in range(N_CLIENTS)]
-    j_commits = [JB.commit(UPDATES[c], j_bl[c], J_FP) for c in range(N_CLIENTS)]
     t_sum = TB.add_commitments(t_commits, device="cpu")
-    j_sum = JB.add_commitments(j_commits)
-    return dict(t_bl=t_bl, j_bl=j_bl, t_commits=t_commits, j_commits=j_commits,
-                t_sum=t_sum, j_sum=j_sum)
+    return dict(t_bl=t_bl, j_bl=[bytes.fromhex(b) for b in kat["blindings"]],
+                t_commits=t_commits, j_commits=[bytes.fromhex(c) for c in kat["commits"]],
+                t_sum=t_sum, j_sum=bytes.fromhex(kat["sum"]),
+                j_out=np.asarray(kat["extracted"], np.float32),
+                j_part=bytes.fromhex(kat["partial_sum"]), j_part_error=kat["partial_error"])
 
 
 def test_blinding_blobs_are_byte_identical(round_blobs):
@@ -67,7 +70,7 @@ def test_summed_blob_is_byte_identical(round_blobs):
 
 def test_extracted_sums_are_equal_and_exact(round_blobs):
     t_out = TB.extract_values(round_blobs["t_sum"], T_FP, device="cpu")
-    j_out = JB.extract_values(round_blobs["j_sum"], J_FP)
+    j_out = round_blobs["j_out"]
     assert t_out.dtype == np.float32 and t_out.shape == (D,)
     np.testing.assert_array_equal(t_out, j_out)
     np.testing.assert_array_equal(t_out, WANT)
@@ -75,12 +78,11 @@ def test_extracted_sums_are_equal_and_exact(round_blobs):
 
 def test_round_without_cancelling_blindings_fails_on_both_sides(round_blobs):
     t_part = TB.add_commitments(round_blobs["t_commits"][:-1], device="cpu")
-    j_part = JB.add_commitments(round_blobs["j_commits"][:-1])
-    assert t_part == j_part
-    with pytest.raises(ValueError, match="discrete log not found"):
+    assert t_part == round_blobs["j_part"]
+    with pytest.raises(ValueError, match="discrete log not found") as raised:
         TB.extract_values(t_part, T_FP, device="cpu")
-    with pytest.raises(ValueError, match="discrete log not found"):
-        JB.extract_values(j_part, J_FP)
+    assert "discrete log not found" in round_blobs["j_part_error"]
+    assert str(raised.value) == round_blobs["j_part_error"]
 
 
 def test_elgamal_form_of_the_round(round_blobs):
