@@ -43,9 +43,10 @@ Phases:
            times at N = 50000; the MSMs also held equal and timed, with
            their plain versions, at the l2 path's shapes, with the window c
            and the slices each ran at; shared_scalar_mul
-           at N = 50000 for k = 0, 1, l-1 and scalars of low, high and
-           random Hamming weight, each timed; scalar_mul_window at W = 2 and
-           4; the point_add and sc_add chains of tree_sum and sc.sum_reduce
+           at N = 50000 for k = 0, 1, 2, l-1, 2^256 - 1 and scalars of low,
+           high and random Hamming weight, each timed beside the nonzero
+           digits of its width-5 NAF; scalar_mul_window at W = 2 and 4, per
+           lane and broadcast; the point_add and sc_add chains of tree_sum and sc.sum_reduce
            timed at 50000 lanes
   round    d = 50000, 4 clients, FpConfig(16, 7), through ``bindings``:
            cancelling blindings (keyed Keccak XOF on the card, reduced mod l
@@ -149,11 +150,9 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 2
 
 # 32-bit multiply-adds per lane, counted for the cheapest layout the card
-# allows (point_add, point_double, compress, decompress, scalar_mul and the
-# MSMs run on it; the shared and windowed ladders keep 16-bit limbs, 256 per
-# product): with 8 limbs of 32 bits a 255-bit product is 64 wide multiplies,
-# each a low and a high 32-bit multiply-add, so 128, and a squaring is 36
-# wide multiplies, 72.
+# allows (every curve kernel runs on it): with 8 limbs of 32 bits a 255-bit
+# product is 64 wide multiplies, each a low and a high 32-bit multiply-add,
+# so 128, and a squaring is 36 wide multiplies, 72.
 # Field operations the functions need, from the formulas in csrc/fe25519_32.cuh:
 #   add        9 products
 #   double     4 products + 4 squarings
@@ -178,8 +177,9 @@ INT32_OPS_PER_S = 67e12 / 2
 # function and has the same bound.
 # shared_scalar_mul's least work depends on its one scalar, which is known: its
 # bound is computed per call (shared_bound_ms) from the cheapest fixed-window or
-# NAF schedule for the scalar timed, not from the kernel's own 256 doublings and
-# one add a set bit; k = 0 and k = 1 are bound by their bytes.
+# NAF schedule for the scalar timed (T left out of every doubling that a
+# doubling follows, as above), whatever the kernel runs (a width-5 NAF);
+# k = 0 and k = 1 are bound by their bytes.
 # Bytes per lane: (16, N) int32 arrays read and written once (the doubling
 # reads no T), the validity byte of decompress, the 64 int32 byte columns of
 # sc_reduce_wide.
@@ -308,23 +308,37 @@ def msm_bound_ms(n: int, group: int) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def chain_madds(ops: str) -> int:
+    """Multiply-adds of a run of doublings (D) and additions (A) in order: a
+    doubling that another doubling follows leaves T out."""
+    total = 0
+    for i, op in enumerate(ops):
+        if op == "A":
+            total += POINT_ADD_MADDS
+        elif ops[i + 1:i + 2] == "D":
+            total += POINT_DOUBLE_NO_T_MADDS
+        else:
+            total += POINT_DOUBLE_MADDS
+    return total
+
+
 def least_shared_madds(k: int) -> int:
     """Multiply-adds of the cheapest common schedule for k * P with k known:
     the fewer of a fixed c-bit window (table of 2^c multiples: 2^(c-1) - 1
     doublings and as many adds; c doublings a window; an add a nonzero digit
     below the top one) and a width-w NAF (odd multiples up to 2^(w-1) - 1:
     one doubling and 2^(w-2) - 1 adds; a doubling a digit; an add a nonzero
-    digit below the top one; negation is free), for the k given. k = 0 and
-    k = 1 need no arithmetic."""
+    digit below the top one; negation is free), for the k given, each run
+    of doublings counted by chain_madds. k = 0 and k = 1 need no
+    arithmetic."""
     if k < 2:
         return 0
     costs = []
     for c in range(1, 9):
         digits = [(k >> s) & ((1 << c) - 1) for s in range(0, k.bit_length(), c)]
-        table = (1 << (c - 1)) - 1
-        doubles = table + c * (len(digits) - 1)
-        adds = table + sum(1 for x in digits if x) - 1
-        costs.append(doubles * POINT_DOUBLE_MADDS + adds * POINT_ADD_MADDS)
+        table = ((1 << (c - 1)) - 1) * (POINT_DOUBLE_MADDS + POINT_ADD_MADDS)
+        ops = "".join("D" * c + ("A" if x else "") for x in reversed(digits[:-1]))
+        costs.append(table + chain_madds(ops))
     for w in range(2, 9):
         naf, x = [], k
         while x:
@@ -335,10 +349,9 @@ def least_shared_madds(k: int) -> int:
                 x -= digit
             naf.append(digit)
             x >>= 1
-        table = (1 << (w - 2)) - 1
-        doubles = (1 if table else 0) + len(naf) - 1
-        adds = table + sum(1 for x in naf if x) - 1
-        costs.append(doubles * POINT_DOUBLE_MADDS + adds * POINT_ADD_MADDS)
+        table = POINT_DOUBLE_MADDS + ((1 << (w - 2)) - 1) * POINT_ADD_MADDS if w > 2 else 0
+        ops = "".join("D" + ("A" if x else "") for x in reversed(naf[:-1]))
+        costs.append(table + chain_madds(ops))
     return min(costs)
 
 
@@ -829,12 +842,14 @@ def check_msm(records: dict, hold, rng: np.random.Generator) -> None:
 
 # shared_scalar_mul: one scalar for all N = 50000 lanes of test_points (the
 # identity and the basepoint among them); each scalar below is held equal to
-# the plain version and timed, the kernel's time following the Hamming weight.
+# the plain version and timed, the kernel's time following the number of
+# nonzero digits of its width-5 NAF (2^256 - 1: digits 0 and 256 only).
 # The scalar goes to the wrapper as a tensor on the card for the check and as
 # host limbs for the timing (the wrapper copies it to the host either way; a
 # copy from the card would stall the queued launches).
-SHARED_SCALARS = {"random": None, "zero": 0, "one": 1, "l_minus_1": SS.L - 1,
-                  "low_weight": (1 << 200) | 5, "high_weight": 2**253 - 1}
+SHARED_SCALARS = {"random": None, "zero": 0, "one": 1, "two": 2, "l_minus_1": SS.L - 1,
+                  "low_weight": (1 << 200) | 5, "high_weight": 2**253 - 1,
+                  "all_ones": 2**256 - 1}
 WINDOW_BROADCAST_LANES = 77
 
 
@@ -855,8 +870,9 @@ def check_shared_and_window(records: dict, hold, rng: np.random.Generator) -> No
         host_limbs = sc.pack_scalars([k])
         ms = device_ms(lambda: kernels.shared_scalar_mul(host_limbs, p), reps=3, rounds=3)
         bound, by = shared_bound_ms(D, k)
-        rec["scalars"].append({"name": name, "hamming_weight": bin(k).count("1"), "ms": ms,
-                               "plain_ms": 1e3 * plain_seconds, "bound_ms": bound,
+        rec["scalars"].append({"name": name, "hamming_weight": bin(k).count("1"),
+                               "naf_nonzero": int(np.count_nonzero(kernels.naf_digits(k))),
+                               "ms": ms, "plain_ms": 1e3 * plain_seconds, "bound_ms": bound,
                                "bound_by": by})
         if name == "random":
             rec.update(n=D, ms=ms, plain_ms=1e3 * plain_seconds, bound_ms=bound, bound_by=by,
@@ -883,7 +899,8 @@ def check_shared_and_window(records: dict, hold, rng: np.random.Generator) -> No
         hold("scalar_mul_window", encodings(kernels.scalar_mul_window(kb, pb, w)),
              encodings(kernels.scalar_mul_window_ref(kb, pb, w)))
         ms = device_ms(lambda: kernels.scalar_mul_window(k, p, w), reps=3, rounds=3)
-        rec["windows"][w] = {"ms": ms, "plain_ms": 1e3 * plain_seconds}
+        rec["windows"][w] = {"ms": ms, "plain_ms": 1e3 * plain_seconds,
+                             "bound_ms": bound_ms("scalar_mul_window", D)[0]}
     rec.update(n=D, ms=rec["windows"][4]["ms"], plain_ms=rec["windows"][4]["plain_ms"],
                library_ms=None, scalar_mul_ms_same_inputs=device_ms(
                    lambda: kernels.scalar_mul(k, p), reps=3, rounds=3))

@@ -1,12 +1,12 @@
 // GF(2^255-19) and Ristretto255 point arithmetic on 8 limbs of 32 bits, one
-// lane per CUDA thread: the arithmetic under csrc/point_add.cu,
-// csrc/point_double.cu, csrc/compress.cu, csrc/decompress.cu, csrc/msm.cu and
-// csrc/scalar_mul.cu.
+// lane per CUDA thread: the arithmetic under every curve kernel of the port,
+// csrc/point_add.cu, csrc/point_double.cu, csrc/compress.cu,
+// csrc/decompress.cu, csrc/msm.cu, csrc/scalar_mul.cu,
+// csrc/scalar_mul_window.cu and csrc/shared_scalar_mul.cu.
 //
-// csrc/fe25519.cuh keeps 16 limbs of 16 bits, so a product there is 256
-// 32x32->64-bit multiply-adds into 64-bit columns. Here a product is 64
-// partial products of 32-bit limbs, each one wide multiply-add into a
-// 32-bit limb with a 32-bit carry (operand scanning), and a squaring 36.
+// A product is 64 partial products of 32-bit limbs, each one wide
+// multiply-add into a 32-bit limb with a 32-bit carry (operand scanning),
+// and a squaring 36; on 16 limbs of 16 bits the same product would take 256.
 // Values are weakly reduced in [0, 2^256); 2^256 = 38 (mod p) folds the
 // high half of a product and the carry of a sum back into range.
 //
@@ -23,17 +23,7 @@
 
 #include <stdint.h>
 
-#ifndef ROFL_HD
-#if defined(__CUDACC__)
-#define ROFL_HD __host__ __device__ __forceinline__
-#define ROFL_UNROLL _Pragma("unroll")
-#define ROFL_NO_UNROLL _Pragma("unroll 1")
-#else
-#define ROFL_HD inline
-#define ROFL_UNROLL
-#define ROFL_NO_UNROLL
-#endif
-#endif
+#include "rofl_hd.cuh"
 
 namespace rofl32 {
 
@@ -332,8 +322,8 @@ ROFL_HD void ge_store16(int32_t *px, int32_t *py, int32_t *pz, int32_t *pt, int6
   fe_store16(pt, n_lanes, lane, p.t);
 }
 
-// Unified extended addition add-2008-hwcd-3, a = -1, as in ge25519.cuh:
-// complete, so identity and doubling inputs need no branch. 9 products.
+// Unified extended addition add-2008-hwcd-3, a = -1 (the TPU package's
+// p_add): complete, so identity and doubling inputs need no branch. 9 products.
 ROFL_HD ge ge_add(const ge &p, const ge &q) {
   fe a = fe_mul(fe_sub(p.y, p.x), fe_sub(q.y, q.x));
   fe b = fe_mul(fe_add(p.y, p.x), fe_add(q.y, q.x));
@@ -503,9 +493,8 @@ ROFL_HD void recode_signed(const uint32_t k[NW], int8_t *out, int64_t stride) {
 
 // Entries of THREADS threads' points laid out [entry][word][thread]
 // (x0..x7, y0..y7, z0..z7, t0..t7), so a warp's accesses to one word of one
-// entry fall in 32 different banks. The ladder's table of P..8P and the
-// MSM's buckets 1..2^(C-1) are such arrays; entry e holds multiple or bucket
-// e + 1.
+// entry fall in 32 different banks. The ladders' tables and the MSM's
+// buckets 1..2^(C-1) are such arrays.
 ROFL_HD void ge_entry_put(uint32_t *sm, int threads, int tid, int entry, const ge &p) {
   uint32_t *base = sm + (int64_t)entry * POINT_WORDS * threads + tid;
   ROFL_UNROLL
@@ -547,61 +536,135 @@ ROFL_HD ge ge_entry_select(const uint32_t *sm, int threads, int tid, int mag) {
 ROFL_HD int digit_magnitude(int d) { return (d ^ (d >> 31)) - (d >> 31); }
 ROFL_HD bool digit_negative(int d) { return (d >> 31) != 0; }
 
-// -- the per-lane ladder (csrc/scalar_mul.cu) -----------------------------
+// -- the per-lane ladders (csrc/scalar_mul.cu, csrc/scalar_mul_window.cu) -
 
-constexpr int LADDER_ENTRIES = 8;  // P..8P
+// The ladder's window C, 2 or 4 (C divides 32, so a word of k holds 32 / C
+// whole digits): a table of P, 2P, ..., 2^(C-1) P, and the recoding's
+// offset within one word of k, bit C - 1 of every C bits set (0xAAAAAAAA at
+// C = 2, 0x88888888 at C = 4).
+template <int C>
+struct ladder_window {
+  static_assert(C == 2 || C == 4, "the ladder runs at C = 2 or 4");
+  static constexpr int entries = digits<C>::half;
+  static constexpr uint32_t word_offset = 0xFFFFFFFFu / ((1u << C) - 1u) << (C - 1);
+};
 
-// Table of P, 2P, ..., 8P: four doublings and three additions.
+// Table of P, 2P, ..., 2^(C-1) P, entry e holding (e + 1) P: one doubling
+// at C = 2; four doublings and three additions at C = 4.
+template <int C>
 ROFL_HD void ladder_table(uint32_t *sm, int threads, int tid, const ge &p) {
-  const ge m2 = ge_double(p);
-  const ge m3 = ge_add(m2, p);
-  const ge m4 = ge_double(m2);
-  const ge m6 = ge_double(m3);
-  ge_entry_put(sm, threads, tid, 0, p);
-  ge_entry_put(sm, threads, tid, 1, m2);
-  ge_entry_put(sm, threads, tid, 2, m3);
-  ge_entry_put(sm, threads, tid, 3, m4);
-  ge_entry_put(sm, threads, tid, 4, ge_add(m4, p));
-  ge_entry_put(sm, threads, tid, 5, m6);
-  ge_entry_put(sm, threads, tid, 6, ge_add(m6, p));
-  ge_entry_put(sm, threads, tid, 7, ge_double(m4));
+  if constexpr (C == 2) {
+    ge_entry_put(sm, threads, tid, 0, p);
+    ge_entry_put(sm, threads, tid, 1, ge_double(p));
+  } else {
+    const ge m2 = ge_double(p);
+    const ge m3 = ge_add(m2, p);
+    const ge m4 = ge_double(m2);
+    const ge m6 = ge_double(m3);
+    ge_entry_put(sm, threads, tid, 0, p);
+    ge_entry_put(sm, threads, tid, 1, m2);
+    ge_entry_put(sm, threads, tid, 2, m3);
+    ge_entry_put(sm, threads, tid, 3, m4);
+    ge_entry_put(sm, threads, tid, 4, ge_add(m4, p));
+    ge_entry_put(sm, threads, tid, 5, m6);
+    ge_entry_put(sm, threads, tid, 6, ge_add(m6, p));
+    ge_entry_put(sm, threads, tid, 7, ge_double(m4));
+  }
 }
 
-// k * P for one lane, k from the (16, k_lanes) storage (any 256-bit value):
-// the table, then the 65 signed radix-16 digits of k from the top: the top
-// digit (0 or 1) selects the start, then 4 doublings and one add of the
-// selected multiple a digit (256 doublings and 64 adds in all). The digits
-// are made a word at a time as the loop reaches it: k' = k + 0x88...8
-// (recode_offset<4>, each word's carry in from below kept in a mask made
-// first), digit = nibble of k' - 8; the top digit is the carry out of k',
-// 0 or 1. The words of k are read from global memory
-// by a loop counter, never from a register array indexed by one.
+// k * P for one lane, k from the (16, k_lanes) storage (any 256-bit value),
+// by signed C-bit windows: the table, then the ceil(257 / C) signed digits
+// of k from the top: the top digit (0 or 1) selects the start, then C
+// doublings (T only on the last) and one add of the selected multiple a
+// digit (256 doublings and 256 / C adds in all). The digits are made a word
+// at a time as the loop reaches it: k' = k + offset (recode_offset<C>, each
+// word's carry in from below kept in a mask made first), digit = C-bit
+// chunk of k' less 2^(C-1); the top digit is the carry out of k', 0 or 1.
+// The words of k are read from global memory by a loop counter, never from
+// a register array indexed by one.
+template <int C>
 ROFL_HD ge ladder_scalar_mul(const int32_t *k, int64_t k_lanes, int64_t k_lane, uint32_t *sm,
                              int threads, int tid, const ge &p) {
-  ladder_table(sm, threads, tid, p);
+  constexpr int H = ladder_window<C>::entries;
+  constexpr uint32_t OFFSET = ladder_window<C>::word_offset;
+  ladder_table<C>(sm, threads, tid, p);
   uint32_t kw[NW], kp[NW + 1];
   scalar_load16(k, k_lanes, k_lane, kw);
-  recode_offset<4>(kw, kp);
-  uint32_t carry_in = 0;  // bit w: the carry into word w of k + 0x88...8
+  recode_offset<C>(kw, kp);
+  uint32_t carry_in = 0;  // bit w: the carry into word w of k + offset
   ROFL_UNROLL
-  for (int w = 1; w < NW; ++w) carry_in |= (kp[w] - kw[w] - 0x88888888u) << w;
-  ge acc = ge_entry_select<LADDER_ENTRIES>(sm, threads, tid, (int)kp[NW]);
+  for (int w = 1; w < NW; ++w) carry_in |= (kp[w] - kw[w] - OFFSET) << w;
+  ge acc = ge_entry_select<H>(sm, threads, tid, (int)kp[NW]);
   ROFL_NO_UNROLL
   for (int w = NW - 1; w >= 0; --w) {
     const uint32_t lo = (uint32_t)k[(2 * w) * k_lanes + k_lane];
     const uint32_t hi = (uint32_t)k[(2 * w + 1) * k_lanes + k_lane];
-    const uint32_t shifted = (lo | (hi << 16)) + 0x88888888u + ((carry_in >> w) & 1u);
+    const uint32_t shifted = (lo | (hi << 16)) + OFFSET + ((carry_in >> w) & 1u);
     ROFL_NO_UNROLL
-    for (int nib = 7; nib >= 0; --nib) {
-      acc = ge_double(acc, false);
-      acc = ge_double(acc, false);
-      acc = ge_double(acc, false);
-      acc = ge_double(acc, true);
-      const int digit = (int)((shifted >> (4 * nib)) & 15u) - 8;
+    for (int j = 32 / C - 1; j >= 0; --j) {
+      ROFL_UNROLL
+      for (int i = 0; i < C; ++i) acc = ge_double(acc, i == C - 1);
+      const int digit = (int)((shifted >> (C * j)) & ((1u << C) - 1u)) - H;
       acc = ge_add(acc, ge_cneg(digit_negative(digit),
-                                ge_entry_select<LADDER_ENTRIES>(sm, threads, tid,
-                                                                digit_magnitude(digit))));
+                                ge_entry_select<H>(sm, threads, tid, digit_magnitude(digit))));
     }
+  }
+  return acc;
+}
+
+// -- the shared-scalar ladder (csrc/shared_scalar_mul.cu) -----------------
+
+// One public scalar k < 2^256 as its width-5 NAF, made on the host
+// (rofl_tpu_torch/ops/kernels.py naf_digits) and passed to the kernel by
+// value: k = sum d[i] 2^i over i < count, each d[i] 0 or odd in [-15, 15],
+// no two nonzero digits within 5 places, d[count - 1] nonzero (count 0 for
+// k = 0).
+constexpr int NAF_WIDTH = 5;
+constexpr int NAF_MAX_DIGITS = 257;
+constexpr int NAF_ENTRIES = 1 << (NAF_WIDTH - 2);  // P, 3P, ..., 15P
+
+struct naf_scalar {
+  int32_t count;
+  int8_t d[NAF_MAX_DIGITS];
+};
+
+// Table of the odd multiples P, 3P, ..., 15P, entry e holding (2e + 1) P:
+// one doubling and seven additions.
+ROFL_HD void naf_table(uint32_t *sm, int threads, int tid, const ge &p) {
+  const ge p2 = ge_double(p);
+  ge m = p;
+  ge_entry_put(sm, threads, tid, 0, m);
+  ROFL_NO_UNROLL
+  for (int e = 1; e < NAF_ENTRIES; ++e) {
+    m = ge_add(m, p2);
+    ge_entry_put(sm, threads, tid, e, m);
+  }
+}
+
+// d P for a nonzero digit d: entry |d| >> 1, negated where d < 0.
+ROFL_HD ge naf_entry(const uint32_t *sm, int threads, int tid, int d) {
+  return ge_cneg(digit_negative(d), ge_entry_get(sm, threads, tid, digit_magnitude(d) >> 1));
+}
+
+// k * P from the top digit down: the top digit's entry, then a doubling a
+// digit and, on a nonzero digit, one addition of its entry. Every lane reads
+// the same digit, so each branch is taken by a whole warp or by none of it,
+// and the table is read at the digit's own entry: k is public, and the run
+// time follows the weight of its NAF. A doubling that another doubling
+// follows leaves T out. k = 0 gives the identity, k = 1 the entry P.
+ROFL_HD ge naf_scalar_mul(const naf_scalar &k, uint32_t *sm, int threads, int tid, const ge &p) {
+  naf_table(sm, threads, tid, p);
+  if (k.count == 0) return ge_identity();
+  ge acc = naf_entry(sm, threads, tid, k.d[k.count - 1]);
+  ROFL_NO_UNROLL
+  for (int i = k.count - 2; i >= 0; --i) {
+    const int d = k.d[i];
+    if (d == 0 && i > 0) {
+      acc = ge_double(acc, false);
+      continue;
+    }
+    acc = ge_double(acc, true);
+    if (d != 0) acc = ge_add(acc, naf_entry(sm, threads, tid, d));
   }
   return acc;
 }

@@ -7,60 +7,11 @@
 #include <vector>
 
 #include "fe25519_32.cuh"
-#include "ge25519.cuh"
 #include "sc25519.cuh"
 
 using namespace rofl;
 
-namespace {
-
-ge load_point(const int32_t *x, const int32_t *y, const int32_t *z, const int32_t *t,
-              int64_t n_lanes, int64_t lane) {
-  ge p;
-  p.x = fe_load(x, n_lanes, lane);
-  p.y = fe_load(y, n_lanes, lane);
-  p.z = fe_load(z, n_lanes, lane);
-  p.t = fe_load(t, n_lanes, lane);
-  return p;
-}
-
-void store_point(int32_t *x, int32_t *y, int32_t *z, int32_t *t, int64_t n_lanes,
-                 int64_t lane, const ge &p) {
-  fe_store(x, n_lanes, lane, p.x);
-  fe_store(y, n_lanes, lane, p.y);
-  fe_store(z, n_lanes, lane, p.z);
-  fe_store(t, n_lanes, lane, p.t);
-}
-
-}  // namespace
-
 extern "C" {
-
-// op: 0 add, 1 sub, 2 mul, 3 sqr(a), 4 neg(a), 5 mul_small(a, 2), 6 canon(a),
-// 7 inv(a), 8 pow_p58(a), 9 cabs(a), 10 sqrt_ratio_m1(a, b) with the
-// was_square flag written to flag[lane].
-void host_fe_op(int op, const int32_t *a, const int32_t *b, int32_t *out,
-                int32_t *flag, int n) {
-  for (int lane = 0; lane < n; ++lane) {
-    fe x = fe_load(a, n, lane), y = fe_load(b, n, lane), r = fe_zero();
-    int f = 0;
-    switch (op) {
-      case 0: r = fe_add(x, y); break;
-      case 1: r = fe_sub(x, y); break;
-      case 2: r = fe_mul(x, y); break;
-      case 3: r = fe_sqr(x); break;
-      case 4: r = fe_neg(x); break;
-      case 5: r = fe_mul_small(x, 2); break;
-      case 6: r = fe_canon(x); break;
-      case 7: r = fe_inv(x); break;
-      case 8: r = fe_pow_p58(x); break;
-      case 9: r = fe_cabs(x); break;
-      case 10: f = fe_sqrt_ratio_m1(x, y, r); break;
-    }
-    fe_store(out, n, lane, r);
-    flag[lane] = f;
-  }
-}
 
 // csrc/point_add.cu's lane: the 32-bit ge_add of fe25519_32.cuh.
 void host_point_add(const int32_t *px, const int32_t *py, const int32_t *pz,
@@ -76,19 +27,6 @@ void host_point_add(const int32_t *px, const int32_t *py, const int32_t *pz,
   }
 }
 
-// The 16-bit ge_add of ge25519.cuh, under the shared and windowed ladders.
-void host_point_add16(const int32_t *px, const int32_t *py, const int32_t *pz,
-                      const int32_t *pt, int p_lanes, const int32_t *qx,
-                      const int32_t *qy, const int32_t *qz, const int32_t *qt,
-                      int q_lanes, int32_t *ox, int32_t *oy, int32_t *oz, int32_t *ot,
-                      int n) {
-  for (int lane = 0; lane < n; ++lane) {
-    ge p = load_point(px, py, pz, pt, p_lanes, p_lanes == 1 ? 0 : lane);
-    ge q = load_point(qx, qy, qz, qt, q_lanes, q_lanes == 1 ? 0 : lane);
-    store_point(ox, oy, oz, ot, n, lane, ge_add(p, q));
-  }
-}
-
 // csrc/point_double.cu's lane: the 32-bit ge_double of fe25519_32.cuh.
 void host_point_double(const int32_t *px, const int32_t *py, const int32_t *pz,
                        const int32_t *pt, int32_t *ox, int32_t *oy, int32_t *oz,
@@ -97,15 +35,6 @@ void host_point_double(const int32_t *px, const int32_t *py, const int32_t *pz,
   for (int lane = 0; lane < n; ++lane) {
     f::ge_store16(ox, oy, oz, ot, n, lane,
                   f::ge_double(f::ge_load16(px, py, pz, pt, n, lane), true));
-  }
-}
-
-// The 16-bit ge_double of ge25519.cuh, under the shared and windowed ladders.
-void host_point_double16(const int32_t *px, const int32_t *py, const int32_t *pz,
-                         const int32_t *pt, int32_t *ox, int32_t *oy, int32_t *oz,
-                         int32_t *ot, int n) {
-  for (int lane = 0; lane < n; ++lane) {
-    store_point(ox, oy, oz, ot, n, lane, ge_double(load_point(px, py, pz, pt, n, lane)));
   }
 }
 
@@ -157,54 +86,62 @@ void host_sc_op(int op, const int32_t *a, int a_lanes, const int32_t *b, int b_l
 }
 
 // csrc/scalar_mul.cu with `threads` threads a block (k_lanes n or 1): each
-// thread's ladder_scalar_mul with its table in the block's shared-memory
+// thread's ladder_scalar_mul<4> with its table in the block's shared-memory
 // array, [entry][word][thread], as on the card.
 void host_scalar_mul(const int32_t *k, int k_lanes, const int32_t *px, const int32_t *py,
                      const int32_t *pz, const int32_t *pt, int32_t *ox, int32_t *oy,
                      int32_t *oz, int32_t *ot, int n, int threads) {
-  std::vector<uint32_t> sm((std::size_t)rofl32::LADDER_ENTRIES * rofl32::POINT_WORDS * threads);
+  namespace f = rofl32;
+  std::vector<uint32_t> sm((std::size_t)f::ladder_window<4>::entries * f::POINT_WORDS * threads);
   for (int lane = 0; lane < n; ++lane) {
-    const int tid = lane % threads;
-    rofl32::ge acc = rofl32::ladder_scalar_mul(k, k_lanes, k_lanes == 1 ? 0 : lane, sm.data(),
-                                               threads, tid,
-                                               rofl32::ge_load16(px, py, pz, pt, n, lane));
-    rofl32::ge_store16(ox, oy, oz, ot, n, lane, acc);
+    const f::ge acc = f::ladder_scalar_mul<4>(k, k_lanes, k_lanes == 1 ? 0 : lane, sm.data(),
+                                              threads, lane % threads,
+                                              f::ge_load16(px, py, pz, pt, n, lane));
+    f::ge_store16(ox, oy, oz, ot, n, lane, acc);
   }
 }
 
-// The loop of csrc/shared_scalar_mul.cu: one scalar k (16 limbs) for every
-// lane, 256 steps from bit 255 down, the add only on a set bit.
-void host_shared_scalar_mul(const uint32_t *k, const int32_t *px, const int32_t *py,
-                            const int32_t *pz, const int32_t *pt, int32_t *ox, int32_t *oy,
-                            int32_t *oz, int32_t *ot, int n) {
-  scalar16 ks;
-  for (int i = 0; i < NLIMB; ++i) ks.v[i] = k[i];
+// csrc/shared_scalar_mul.cu with `threads` threads a block: one scalar for
+// every lane, given as the `count` digits of its width-5 NAF (digit i of
+// 2^i first, as kernels.naf_digits makes them); each thread's
+// naf_scalar_mul with its table of odd multiples in the block's
+// shared-memory array. A count above 257 writes nothing and returns 1.
+int host_shared_scalar_mul(const int8_t *digits, int count, const int32_t *px,
+                           const int32_t *py, const int32_t *pz, const int32_t *pt,
+                           int32_t *ox, int32_t *oy, int32_t *oz, int32_t *ot, int n,
+                           int threads) {
+  namespace f = rofl32;
+  if (count < 0 || count > f::NAF_MAX_DIGITS) return 1;
+  f::naf_scalar k = {};
+  k.count = count;
+  for (int i = 0; i < count; ++i) k.d[i] = digits[i];
+  std::vector<uint32_t> sm((std::size_t)f::NAF_ENTRIES * f::POINT_WORDS * threads);
   for (int lane = 0; lane < n; ++lane) {
-    ge p = load_point(px, py, pz, pt, n, lane);
-    ge acc = ge_identity();
-    for (int limb = NLIMB - 1; limb >= 0; --limb) {
-      for (int bit = 15; bit >= 0; --bit) {
-        acc = ge_shared_ladder_step(acc, p, ((ks.v[limb] >> bit) & 1u) != 0);
-      }
-    }
-    store_point(ox, oy, oz, ot, n, lane, acc);
+    const f::ge acc = f::naf_scalar_mul(k, sm.data(), threads, lane % threads,
+                                        f::ge_load16(px, py, pz, pt, n, lane));
+    f::ge_store16(ox, oy, oz, ot, n, lane, acc);
   }
+  return 0;
 }
 
-// The body of csrc/scalar_mul_window.cu for window 2 or 4 (anything else
-// writes nothing and returns 1), with its scratch table of
-// 2^window * 64 * n int32.
+// csrc/scalar_mul_window.cu with `threads` threads a block, window 2 or 4
+// (anything else writes nothing and returns 1): each thread's
+// ladder_scalar_mul<window> with its table in the block's shared-memory
+// array, as host_scalar_mul.
 int host_scalar_mul_window(int window, const int32_t *k, int k_lanes, const int32_t *px,
                            const int32_t *py, const int32_t *pz, const int32_t *pt,
-                           int32_t *table, int32_t *ox, int32_t *oy, int32_t *oz, int32_t *ot,
-                           int n) {
+                           int32_t *ox, int32_t *oy, int32_t *oz, int32_t *ot, int n,
+                           int threads) {
+  namespace f = rofl32;
   if (window != 2 && window != 4) return 1;
+  std::vector<uint32_t> sm((std::size_t)f::ladder_window<4>::entries * f::POINT_WORDS * threads);
   for (int lane = 0; lane < n; ++lane) {
-    ge p = load_point(px, py, pz, pt, n, lane);
-    int64_t kl = k_lanes == 1 ? 0 : lane;
-    ge acc = window == 2 ? ge_scalar_mul_window<2>(k, k_lanes, kl, table, n, lane, p)
-                         : ge_scalar_mul_window<4>(k, k_lanes, kl, table, n, lane, p);
-    store_point(ox, oy, oz, ot, n, lane, acc);
+    const int64_t k_lane = k_lanes == 1 ? 0 : lane;
+    const f::ge p = f::ge_load16(px, py, pz, pt, n, lane);
+    const f::ge acc =
+        window == 2 ? f::ladder_scalar_mul<2>(k, k_lanes, k_lane, sm.data(), threads, lane % threads, p)
+                    : f::ladder_scalar_mul<4>(k, k_lanes, k_lane, sm.data(), threads, lane % threads, p);
+    f::ge_store16(ox, oy, oz, ot, n, lane, acc);
   }
   return 0;
 }
@@ -213,7 +150,8 @@ int host_scalar_mul_window(int window, const int32_t *k, int k_lanes, const int3
 // (16, n) storage: 0 add, 1 sub, 2 mul, 3 sqr(a), 4 neg(a), 5 a as loaded
 // and stored (the packing of two 16-bit limbs a word), 6 canon(a),
 // 7 is_negative(a) (as the value 0 or 1), 8 cabs(a), 9 invsqrt(a), that is
-// sqrt_ratio_m1(1, a); flag[lane] is its was_square, 0 for the other ops.
+// sqrt_ratio_m1(1, a), 10 pow_p58(a) (the exponent chain under invsqrt);
+// flag[lane] is invsqrt's was_square, 0 for the other ops.
 void host_fe32_op(int op, const int32_t *a, const int32_t *b, int32_t *out, int32_t *flag,
                   int n) {
   namespace f = rofl32;
@@ -230,6 +168,7 @@ void host_fe32_op(int op, const int32_t *a, const int32_t *b, int32_t *out, int3
       case 7: r = f::fe_zero(); r.v[0] = f::fe_is_negative(x) ? 1u : 0u; break;
       case 8: r = f::fe_cabs(x); break;
       case 9: was_square = f::fe_invsqrt(x, r) ? 1 : 0; break;
+      case 10: r = f::fe_pow_p58(x); break;
     }
     f::fe_store16(out, n, lane, r);
     flag[lane] = was_square;

@@ -20,7 +20,7 @@
 
 #include <stdint.h>
 
-#include "fe25519.cuh"
+#include "rofl_hd.cuh"
 
 namespace rofl {
 

@@ -7,7 +7,8 @@
 // 32-bit multiply-adds a lane, and this kernel's 4-bit one does 261 000.
 //
 // Design: a signed radix-16 ladder on 8 limbs of 32 bits (fe25519_32.cuh,
-// ladder_scalar_mul, which compiles for the host too). Each lane recodes its
+// ladder_scalar_mul<4>, which compiles for the host too; csrc/scalar_mul_window.cu
+// runs the same body). Each lane recodes its
 // k, any 256-bit value, into 64 signed digits in [-8, 8) and a top digit 0
 // or 1 (k + 0x88...8, a nibble less 8), builds P, 2P, ..., 8P (four
 // doublings, three additions) in shared memory, 1 KB a lane laid out
@@ -39,7 +40,8 @@ using namespace rofl32;
 namespace {
 
 constexpr int THREADS = ROFL_LADDER_THREADS;
-constexpr int SHARED_BYTES = LADDER_ENTRIES * POINT_WORDS * THREADS * (int)sizeof(uint32_t);
+constexpr int SHARED_BYTES =
+    ladder_window<4>::entries * POINT_WORDS * THREADS * (int)sizeof(uint32_t);
 
 __global__ void __launch_bounds__(THREADS)
 scalar_mul_kernel(const int32_t *k, int k_lanes, const int32_t *px, const int32_t *py,
@@ -49,8 +51,8 @@ scalar_mul_kernel(const int32_t *k, int k_lanes, const int32_t *px, const int32_
   const int tid = threadIdx.x;
   const int64_t lane = (int64_t)blockIdx.x * THREADS + tid;
   if (lane >= n) return;  // no barrier below: a thread uses only its own column
-  const ge acc = ladder_scalar_mul(k, k_lanes, k_lanes == 1 ? 0 : lane, sm, THREADS, tid,
-                                   ge_load16(px, py, pz, pt, n, lane));
+  const ge acc = ladder_scalar_mul<4>(k, k_lanes, k_lanes == 1 ? 0 : lane, sm, THREADS, tid,
+                                      ge_load16(px, py, pz, pt, n, lane));
   ge_store16(ox, oy, oz, ot, n, lane, acc);
 }
 

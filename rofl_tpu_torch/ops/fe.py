@@ -1,7 +1,7 @@
 """Batched GF(2^255-19) arithmetic on torch tensors — 16x16-bit limbs.
 
 Counterpart of ``rofl_tpu.ops.fe``; the plain version of everything the
-CUDA field header (``csrc/fe25519.cuh``) does.
+CUDA field header (``csrc/fe25519_32.cuh``, on 8 limbs of 32 bits) does.
 
   * A field element batch is a tensor of shape (16, *batch): limb-major, so
     adjacent lanes are adjacent in memory (the coalesced layout for one lane

@@ -29,12 +29,11 @@ counterpart of the default W = 1 body (on the card a signed radix-16
 ladder, csrc/scalar_mul.cu), and have no switch for the window.
 
 Each is CUDA C++ for sm_90a, one lane per thread (the MSM: a Pippenger
-over a block's terms a thread, see ``csrc/msm.cu``), sharing the field,
-point and scalar device headers ``csrc/fe25519_32.cuh`` (32-bit limbs, under
-``point_add``, ``point_double``, ``compress``, ``decompress``, ``scalar_mul``
-and the MSMs), ``csrc/fe25519.cuh`` and ``csrc/ge25519.cuh`` (16-bit limbs,
-under the shared and windowed ladders) and
-``csrc/sc25519.cuh`` (the scalar kernels). The sources have
+over a block's terms a thread, see ``csrc/msm.cu``), sharing the device
+headers ``csrc/fe25519_32.cuh`` (field and point arithmetic on 8 limbs of
+32 bits, under every curve kernel), ``csrc/sc25519.cuh`` (the scalar
+kernels) and ``csrc/rofl_hd.cuh`` (the qualifiers that let both compile as
+plain C++ too). The sources have
 a plain C interface and are compiled by ``nvcc`` at first use, one process per
 source, all started together, into ``build/rofl_tpu_torch/`` beside the
 package, and loaded with ``ctypes``. A build or launch failure raises.
@@ -85,7 +84,7 @@ KERNEL_SOURCES = {
     "shared_scalar_mul": "shared_scalar_mul.cu",
     "scalar_mul_window": "scalar_mul_window.cu",
 }
-_HEADERS = ("fe25519.cuh", "ge25519.cuh", "sc25519.cuh", "fe25519_32.cuh")
+_HEADERS = ("fe25519_32.cuh", "sc25519.cuh", "rofl_hd.cuh")
 
 # Launch counts: a wrapper adds one where it launches its kernel, nowhere else.
 LAUNCHES = {name: 0 for name in KERNEL_SOURCES}
@@ -107,8 +106,8 @@ _ARGTYPES = {
     "sc_sub": [_P, _I, _P, _I, _P, _I, _P],
     "scalar_mul": [_P, _I] + [_P] * 8 + [_I, _P],
     "msm_groups": [_P, _I] + [_P] * 4 + [_I] * 3 + [_P] * 6 + [_P],
-    "shared_scalar_mul": [_P] * 9 + [_I, _P],
-    "scalar_mul_window": [_I, _P, _I] + [_P] * 9 + [_I, _P],
+    "shared_scalar_mul": [_P, _I] + [_P] * 8 + [_I, _P],
+    "scalar_mul_window": [_I, _P, _I] + [_P] * 8 + [_I, _P],
 }
 # The C function of a wrapper, where it is not rofl_<wrapper>: msm_flat is
 # msm_groups with one group.
@@ -658,6 +657,29 @@ def msm_flat(k, p):
 # =============================================================================
 
 
+NAF_WIDTH = 5  # csrc/fe25519_32.cuh NAF_WIDTH
+
+
+def naf_digits(k: int) -> np.ndarray:
+    """The width-5 NAF of 0 <= k < 2^256: int8 digits, digit i of 2^i
+    first, k = Σ d_i 2^i, each digit 0 or odd in [-15, 15], no two nonzero
+    digits within 5 places, the last digit nonzero (none for k = 0). At
+    most 257 digits. What ``shared_scalar_mul`` hands its kernel."""
+    if not 0 <= k < 1 << 256:
+        raise ValueError(f"naf_digits: k must be in [0, 2^256), got {k}")
+    digits = []
+    while k:
+        d = 0
+        if k & 1:
+            d = k & ((1 << NAF_WIDTH) - 1)
+            if d >= 1 << (NAF_WIDTH - 1):
+                d -= 1 << NAF_WIDTH
+            k -= d
+        digits.append(d)
+        k >>= 1
+    return np.array(digits, dtype=np.int8)
+
+
 def _shared_scalar_limbs(k) -> np.ndarray:
     """One scalar, (16,) or (16, 1) limbs (a tensor or numpy) → its 16 limbs
     as a contiguous uint32 array on the host."""
@@ -685,19 +707,21 @@ def shared_scalar_mul_ref(k, p):
 def shared_scalar_mul(k, p):
     """k * P_i for one scalar k ((16,) or (16, 1) limbs, on any device)
     across the N lanes of an (x, y, z, t) tuple of (16, N) int32 limbs. All
-    256 bits of k are walked, so k need not be canonical. The add is skipped
-    on a zero bit in both versions, so the time depends on the Hamming
-    weight of k: for public scalars. Equal to the plain version as group
-    elements (compare encodings or with ``curve.eq``)."""
+    256 bits of k are taken, so k need not be canonical. The kernel runs k's
+    width-5 NAF (``naf_digits``, made here on the host) and adds only on a
+    nonzero digit, as the plain version adds only on a set bit, so the time
+    depends on the weight of k: for public scalars. Equal to the plain
+    version as group elements (compare encodings or with ``curve.eq``)."""
     if not use_kernels(p[0]):
         return shared_scalar_mul_ref(k, p)
     device = p[0].device
     n = p[0].shape[-1]
     _check_coords("shared_scalar_mul p", p, device, (n,))
-    limbs = _shared_scalar_limbs(k)  # on the host: the kernel takes it by value
+    limbs = _shared_scalar_limbs(k)  # on the host: the kernel takes the digits by value
+    digits = naf_digits(fe.unpack_scalars(limbs.reshape(NLIMB, 1))[0])
     out = _empty_coords(4, n, device)
-    _launch("shared_scalar_mul", device, n, limbs.ctypes.data, *[c.data_ptr() for c in p],
-            *[c.data_ptr() for c in out], n)
+    _launch("shared_scalar_mul", device, n, digits.ctypes.data, len(digits),
+            *[c.data_ptr() for c in p], *[c.data_ptr() for c in out], n)
     return tuple(out)
 
 
@@ -744,9 +768,10 @@ def scalar_mul_window(k, p, window: int):
     """The function of ``scalar_mul`` (scalars k (16, N) or one broadcast
     lane (16, 1), points an (x, y, z, t) tuple of (16, N) int32 limbs) by
     `window`-bit windows, window 2 or 4; any other raises ValueError. The
-    kernel keeps each lane's 2^window multiples in a scratch table of
-    2^window * 256 bytes a lane. Equal to ``scalar_mul`` and to the plain
-    version as group elements (compare encodings or with ``curve.eq``)."""
+    kernel runs signed windows, its table of P .. 2^(window-1) P in shared
+    memory (the window = 4 body is ``scalar_mul``'s). Equal to
+    ``scalar_mul`` and to the plain version as group elements (compare
+    encodings or with ``curve.eq``)."""
     _check_window(window)
     if not use_kernels(p[0]):
         return scalar_mul_window_ref(k, p, window)
@@ -754,8 +779,7 @@ def scalar_mul_window(k, p, window: int):
     n = p[0].shape[-1]
     _check_coords("scalar_mul_window p", p, device, (n,))
     _check_coords("scalar_mul_window k", (k,), device, (n, 1))
-    table = torch.empty(((1 << window) * 4 * NLIMB * n,), dtype=fe.DTYPE, device=device)
     out = _empty_coords(4, n, device)
     _launch("scalar_mul_window", device, n, window, k.data_ptr(), k.shape[1],
-            *[c.data_ptr() for c in p], table.data_ptr(), *[c.data_ptr() for c in out], n)
+            *[c.data_ptr() for c in p], *[c.data_ptr() for c in out], n)
     return tuple(out)

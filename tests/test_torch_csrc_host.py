@@ -1,7 +1,7 @@
 """The CUDA kernels' field and point arithmetic, compiled for the host.
 
-``csrc/fe25519.cuh``, ``csrc/ge25519.cuh``, ``csrc/fe25519_32.cuh`` and
-``csrc/sc25519.cuh`` also compile as plain C++.
+``csrc/fe25519_32.cuh`` and ``csrc/sc25519.cuh`` also compile as plain
+C++.
 ``csrc/host_check.cpp`` wraps them in a C interface; this test builds it with
 g++ and holds it against the spec and the plain torch versions: canonical
 values bit-equal. It says nothing about the CUDA build or launch, which
@@ -54,50 +54,12 @@ def canon(arr):
     return fe.to_numpy(fe.canonicalize(torch.from_numpy(np.ascontiguousarray(arr))))
 
 
-FE_OPS = {
-    "add": (0, lambda a, b: (a + b) % P),
-    "sub": (1, lambda a, b: (a - b) % P),
-    "mul": (2, lambda a, b: a * b % P),
-    "sqr": (3, lambda a, b: a * a % P),
-    "neg": (4, lambda a, b: (-a) % P),
-    "mul_small_2": (5, lambda a, b: 2 * a % P),
-    "canon": (6, lambda a, b: a % P),
-    "inv": (7, lambda a, b: SF.finv(a % P)),
-    "pow_p58": (8, lambda a, b: SF.fpow_p58(a % P)),
-    "cabs": (9, lambda a, b: SF.fabs(a)),
-}
-
-
 def fe_inputs():
     a = [x for x in EDGES for _ in EDGES] + [
         int.from_bytes(rng.bytes(32), "little") for _ in range(64)]
     b = [y for _ in EDGES for y in EDGES] + [
         int.from_bytes(rng.bytes(32), "little") for _ in range(64)]
     return a, b
-
-
-@pytest.mark.parametrize("name", sorted(FE_OPS))
-def test_field_op_on_host(lib, name):
-    op, want = FE_OPS[name]
-    a, b = fe_inputs()
-    a_np, b_np = limbs_i32(a), limbs_i32(b)
-    out, flag = np.zeros_like(a_np), np.zeros(len(a), np.int32)
-    lib.host_fe_op(op, ptr(a_np), ptr(b_np), ptr(out), ptr(flag), len(a))
-    assert out.min() >= 0 and out.max() <= 0xFFFF  # fully carried
-    got = fe.unpack_scalars(out)
-    assert [g % P for g in got] == [want(x, y) for x, y in zip(a, b)]
-    if name == "canon":
-        assert got == [x % P for x in a]
-
-
-def test_sqrt_ratio_m1_on_host(lib):
-    a, b = fe_inputs()
-    a_np, b_np = limbs_i32(a), limbs_i32(b)
-    out, flag = np.zeros_like(a_np), np.zeros(len(a), np.int32)
-    lib.host_fe_op(10, ptr(a_np), ptr(b_np), ptr(out), ptr(flag), len(a))
-    want = [SF.sqrt_ratio_m1(x, y) for x, y in zip(a, b)]
-    assert [bool(f) for f in flag] == [w[0] for w in want]
-    assert [g % P for g in fe.unpack_scalars(out)] == [w[1] for w in want]
 
 
 def points():
@@ -130,38 +92,6 @@ def test_point_add_and_double_on_host(lib):
             np.testing.assert_array_equal(canon(o), fe.to_numpy(fe.canonicalize(r)))
         got = curve.unpack_points(curve.PointArray(*[torch.from_numpy(o) for o in out]))
         assert [g.compress() for g in got] == [a.double().compress() for a in p]
-
-
-def test_point_double16_on_host(lib):
-    """The 16-bit ge_double of csrc/ge25519.cuh, which the shared and
-    windowed ladders still run, against the plain version and the spec."""
-    p, _ = points()
-    n = len(p)
-    pa = coords_i32(curve.pack_points(p, "cpu"))
-    out = [np.zeros((16, n), np.int32) for _ in range(4)]
-    lib.host_point_double16(*map(ptr, pa), *map(ptr, out), n)
-    for o, r in zip(out, kernels.point_double_ref(tuple(torch.from_numpy(c) for c in pa))):
-        np.testing.assert_array_equal(canon(o), fe.to_numpy(fe.canonicalize(r)))
-    got = curve.unpack_points(curve.PointArray(*[torch.from_numpy(o) for o in out]))
-    assert [g.compress() for g in got] == [a.double().compress() for a in p]
-
-
-def test_point_add16_on_host(lib):
-    """The 16-bit ge_add of csrc/ge25519.cuh, which the shared and windowed
-    ladders still run, against the plain version, with q as one broadcast
-    lane on either side."""
-    p, q = points()
-    n = len(p)
-    pa, qa = coords_i32(curve.pack_points(p, "cpu")), coords_i32(curve.pack_points(q, "cpu"))
-    q1 = [np.ascontiguousarray(c[:, :1]) for c in qa]
-    for (a, a_lanes), (b, b_lanes) in (((pa, n), (qa, n)), ((pa, n), (q1, 1)),
-                                       ((q1, 1), (pa, n))):
-        out = [np.zeros((16, n), np.int32) for _ in range(4)]
-        lib.host_point_add16(*map(ptr, a), a_lanes, *map(ptr, b), b_lanes, *map(ptr, out), n)
-        ref = kernels.point_add_ref(tuple(torch.from_numpy(c) for c in a),
-                                    tuple(torch.from_numpy(c) for c in b))
-        for o, r in zip(out, ref):
-            np.testing.assert_array_equal(canon(o), fe.to_numpy(fe.canonicalize(r)))
 
 
 def weakly_reduced(coords):
@@ -440,6 +370,7 @@ FIELD32_OPS = {
     "is_negative": (7, lambda a, b: int(SF.is_negative(a))),
     "cabs": (8, lambda a, b: SF.fabs(a)),
     "sqrt_ratio_m1": (9, lambda a, b: SF.sqrt_ratio_m1(1, a)[1]),
+    "pow_p58": (10, lambda a, b: SF.fpow_p58(a % P)),
 }
 
 
@@ -450,9 +381,9 @@ def test_field32_op_on_host(lib, name):
     2^255-1, 2^256-39, 2^256-38 and 2^256-1 and random values, read from and
     written to the (16, n) storage of 16-bit limbs: outputs fully carried and
     below 2^256, the input itself for pack, the canonical value for canon,
-    0 or 1 for is_negative, and was_square beside the root for
-    sqrt_ratio_m1, taken at u = 1 (fe_invsqrt, the only form the kernels
-    run)."""
+    0 or 1 for is_negative, was_square beside the root for sqrt_ratio_m1,
+    taken at u = 1 (fe_invsqrt, the only form the kernels run), and for
+    pow_p58 the exponent chain x^((p-5)/8) that fe_invsqrt runs."""
     op, want = FIELD32_OPS[name]
     a, b = fe_inputs()
     a_np, b_np = limbs_i32(a), limbs_i32(b)
@@ -538,56 +469,77 @@ def test_msm_grid_on_host(lib, group, slices, k_lanes):
         assert got[g].compress() == want.compress()
 
 
-SHARED_SCALARS = {"zero": 0, "one": 1, "l_minus_1": None, "low_weight": (1 << 200) | 5,
-                  "high_weight": 2**253 - 1, "random": None}
+SHARED_SCALARS = {"zero": 0, "one": 1, "two": 2, "l_minus_1": None, "two_255": 2**255,
+                  "all_ones": 2**256 - 1, "low_weight": (1 << 200) | 5,
+                  "high_weight": 2**253 - 1, "alternating_55": int("55" * 32, 16),
+                  "alternating_aa": int("aa" * 32, 16), "random": None}
+
+
+def shared_scalar(kind):
+    from rofl_tpu_torch.spec import scalar as SS
+
+    return {"l_minus_1": SS.L - 1,
+            "random": int.from_bytes(rng.bytes(32), "little") % SS.L}.get(kind,
+                                                                           SHARED_SCALARS[kind])
 
 
 @pytest.mark.parametrize("kind", sorted(SHARED_SCALARS))
 def test_shared_scalar_mul_ladder_on_host(lib, kind):
-    """The loop of csrc/shared_scalar_mul.cu (one scalar for every lane, the
-    add only on a set bit) against the spec: k = 0, 1, l-1, scalars of low
-    and high Hamming weight and a random one, on random points with the
-    identity and the basepoint among them."""
+    """The body of csrc/shared_scalar_mul.cu (naf_scalar_mul: the table of
+    P, 3P, ..., 15P in the block's shared memory, the width-5 NAF digits of
+    kernels.naf_digits from the top, an add only on a nonzero digit) at 4
+    threads a block against the spec: k = 0, 1, 2, l-1, 2^255, 2^256-1
+    (whose NAF runs to digit 256), scalars of low and high weight, the
+    alternating 0x55... and 0xAA... patterns and a random one, on random
+    points with the identity and the basepoint among them. A digit count
+    above 257 is refused."""
     from rofl_tpu_torch.spec import scalar as SS
 
     p, _ = points()
     n = len(p)
-    k = {"l_minus_1": SS.L - 1,
-         "random": int.from_bytes(rng.bytes(32), "little") % SS.L}.get(kind,
-                                                                        SHARED_SCALARS[kind])
+    k = shared_scalar(kind)
+    digits = np.ascontiguousarray(kernels.naf_digits(k))
     pa = coords_i32(curve.pack_points(p, "cpu"))
-    k_np = np.ascontiguousarray(fe.pack_scalars([k])[:, 0].astype(np.uint32))
     out = [np.zeros((16, n), np.int32) for _ in range(4)]
-    lib.host_shared_scalar_mul(ptr(k_np), *map(ptr, pa), *map(ptr, out), n)
+    assert lib.host_shared_scalar_mul(ptr(digits), len(digits), *map(ptr, pa),
+                                      *map(ptr, out), n, 4) == 0
     got = curve.PointArray(*[torch.from_numpy(o) for o in out])
     assert [bytes(r) for r in curve.compress_to_bytes(got)] == [
-        q.scalar_mul(k).compress() for q in p]
+        q.scalar_mul(k % SS.L).compress() for q in p]
+    assert 0 <= min(o.min() for o in out) and max(o.max() for o in out) <= 0xFFFF
+    assert lib.host_shared_scalar_mul(ptr(digits), 258, *map(ptr, pa), *map(ptr, out), n, 4) == 1
 
 
 @pytest.mark.parametrize("window", [2, 4])
-def test_scalar_mul_window_on_host(lib, window):
-    """The body of csrc/scalar_mul_window.cu (the table of 2^W multiples in
-    its [entry][word][lane] scratch, the lookup that reads every entry, the
-    windows from the top) against the spec: k = 0, 1, l-1 and 2^256-1, the
-    identity and the basepoint as P, random pairs, and k as one broadcast
-    lane."""
+@pytest.mark.parametrize("k_mode", ["per_lane", "broadcast"])
+def test_scalar_mul_window_on_host(lib, k_mode, window):
+    """The body of csrc/scalar_mul_window.cu (ladder_scalar_mul<W>: the
+    table of P .. 2^(W-1) P in the block's shared memory, the signed W-bit
+    digits from the top, every entry read and selected) at 4 threads a
+    block against the spec: k = 0, 1, 2, l-1, 2^255, 2^256-1, scalars of low
+    and high weight, the alternating patterns, the scalar whose signed
+    digits are all -2^(W-1), and random ones, the identity and the
+    basepoint as P; per lane, and as one broadcast lane. W = 3 is refused."""
     from rofl_tpu_torch.spec import scalar as SS
 
     L = SS.L
     p, _ = points()
     n = len(p)
-    ks = [0, 1, L - 1, 2**256 - 1] + [
-        int.from_bytes(rng.bytes(32), "little") % L for _ in range(n - 4)]
+    edges = [0, 1, 2, L - 1, 2**255, 2**256 - 1, (1 << 200) | 5, 2**253 - 1,
+             int("55" * 32, 16), int("aa" * 32, 16), lowest_digits(window)]
+    ks = edges + [int.from_bytes(rng.bytes(32), "little") % L for _ in range(n - len(edges))]
     pa = coords_i32(curve.pack_points(p, "cpu"))
     k_np = limbs_i32(ks)
-    for k_lanes, k_arr, k_list in ((n, k_np, ks),
-                                   (1, np.ascontiguousarray(k_np[:, 5:6]), [ks[5]] * n)):
-        out = [np.zeros((16, n), np.int32) for _ in range(4)]
-        table = np.zeros((1 << window) * 64 * n, np.int32)
-        assert lib.host_scalar_mul_window(window, ptr(k_arr), k_lanes, *map(ptr, pa),
-                                          ptr(table), *map(ptr, out), n) == 0
-        got = curve.PointArray(*[torch.from_numpy(o) for o in out])
-        assert [bytes(r) for r in curve.compress_to_bytes(got)] == [
-            q.scalar_mul(k % L).compress() for q, k in zip(p, k_list)]
-    assert lib.host_scalar_mul_window(3, ptr(k_np), n, *map(ptr, pa), ptr(table),
-                                      *map(ptr, out), n) == 1
+    if k_mode == "per_lane":
+        k_arr, k_lanes, k_list = k_np, n, ks
+    else:
+        k_arr, k_lanes, k_list = np.ascontiguousarray(k_np[:, 12:13]), 1, [ks[12]] * n
+    out = [np.zeros((16, n), np.int32) for _ in range(4)]
+    assert lib.host_scalar_mul_window(window, ptr(k_arr), k_lanes, *map(ptr, pa),
+                                      *map(ptr, out), n, 4) == 0
+    got = curve.PointArray(*[torch.from_numpy(o) for o in out])
+    assert [bytes(r) for r in curve.compress_to_bytes(got)] == [
+        q.scalar_mul(k % L).compress() for q, k in zip(p, k_list)]
+    assert 0 <= min(o.min() for o in out) and max(o.max() for o in out) <= 0xFFFF
+    assert lib.host_scalar_mul_window(3, ptr(k_arr), k_lanes, *map(ptr, pa),
+                                      *map(ptr, out), n, 4) == 1

@@ -291,7 +291,7 @@ def test_msm_wrappers_refuse_what_the_kernel_does_not_take(card):
         kernels.msm_groups(a, p, 3)  # 3 does not divide 8
 
 
-@pytest.mark.parametrize("k", [0, 1, SS.L - 1, (1 << 200) | 5, 2**253 - 1, 2**256 - 1])
+@pytest.mark.parametrize("k", [0, 1, 2, SS.L - 1, (1 << 200) | 5, 2**253 - 1, 2**256 - 1])
 def test_shared_scalar_mul_kernel_equals_its_plain_version_and_the_spec(card, k):
     rng = np.random.default_rng(k % 1000)
     pool = [SR.hash_from_bytes_sha512(rng.bytes(16)) for _ in range(3)]

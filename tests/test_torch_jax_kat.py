@@ -17,13 +17,21 @@ the port against them read the JAX side from
   tests/test_torch_range_proof_jax.py, tests/test_torch_l2_range_proof.py
   and tests/test_torch_l2_params.py give them, each beside the SHA-256 of
   those bytes, so that a tier-1 test shows that its bytes are the ones the
-  verdict was taken on.
+  verdict was taken on;
+- ``ladders``: the Pallas kernel bodies of ``rofl_tpu.ops.kernels.
+  shared_scalar_mul`` and ``scalar_mul``, the latter at its default one-bit
+  body and at ROFL_SMUL_W = 2 and 4, run op by op on the CPU
+  (``run_pallas_body``), each in a process of its own, on N = 8 points and
+  scalars made from a numpy seed (``ladder_inputs``), inputs and results
+  stored as encodings and hex (read by tests/test_torch_shared_scalar_mul.py,
+  tests/test_torch_scalar_mul.py and tests/test_torch_scalar_mul_window.py).
 
 Regenerate the file with
 
     JAX_PLATFORMS=cpu python tests/test_torch_jax_kat.py
 
-(about ten minutes on eight CPUs). The one test here, marked
+(about ten minutes on eight CPUs, and as long again for the ladders' seven
+processes). The one test here, marked
 ``slow``, recomputes it and asserts that the committed file still equals what
 the JAX package gives.
 """
@@ -33,7 +41,9 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import subprocess
 import sys
+from unittest import mock
 from pathlib import Path
 
 import numpy as np
@@ -143,17 +153,150 @@ def verdict_answers() -> dict:
             for name, entry in out.items()}
 
 
+LADDER_SEED = 909
+LADDER_WINDOWS = (1, 2, 4)  # ROFL_SMUL_W: 1 is the default one-bit body
+# one scalar for every lane: a random one, 2 (whose NAF is one digit up),
+# 2^256 - 1 (whose width-5 NAF runs to digit 256) and one of low weight
+SHARED_KAT_SCALARS = ("random", "two", "all_ones", "low_weight")
+
+
+def ladder_inputs() -> dict:
+    """N = 8 points (the identity and the basepoint among them) as
+    encodings, per-lane scalars (0, 1, 2, l - 1, 2^256 - 1 and random ones)
+    and the shared scalars as hex, from LADDER_SEED."""
+    from rofl_tpu_torch.spec import ristretto as SR
+    from rofl_tpu_torch.spec import scalar as SS
+
+    rng = np.random.default_rng(LADDER_SEED)
+    points = [SR.identity(), SR.BASEPOINT] + [
+        SR.hash_from_bytes_sha512(rng.bytes(16)) for _ in range(6)]
+    scalars = [0, 1, 2, SS.L - 1, 2**256 - 1] + [
+        int.from_bytes(rng.bytes(32), "little") % SS.L for _ in range(3)]
+    shared = {"random": int.from_bytes(rng.bytes(32), "little") % SS.L, "two": 2,
+              "all_ones": 2**256 - 1, "low_weight": (1 << 200) | 5}
+    return {"points": [q.compress().hex() for q in points],
+            "scalars": [f"{k:064x}" for k in scalars],
+            "shared_scalars": {name: f"{shared[name]:064x}" for name in SHARED_KAT_SCALARS}}
+
+
+class _EagerRef:
+    """A Pallas Ref over a whole jnp array: reads and writes by index, a
+    ``pl.ds`` window taken as the slice it names."""
+
+    def __init__(self, value):
+        self.value = value
+
+    @staticmethod
+    def _index(idx):
+        from jax.experimental import pallas as pl
+
+        idx = idx if isinstance(idx, tuple) else (idx,)
+        ds = type(pl.ds(0, 1))
+        return tuple(slice(int(i.start), int(i.start) + i.size) if isinstance(i, ds) else i
+                     for i in idx)
+
+    def __getitem__(self, idx):
+        return self.value[self._index(idx)]
+
+    def __setitem__(self, idx, v):
+        self.value = self.value.at[self._index(idx)].set(v)
+
+
+def run_pallas_body(kernel, inputs: list, n_out: int) -> list:
+    """Run a Pallas kernel body of the JAX package on the CPU, op by op: one
+    block holding every lane, each Ref an array, ``lax.fori_loop`` a Python
+    loop over int32 indices, ``lax.cond`` a Python branch (jax.disable_jit).
+    The body computes what it computes under ``pallas_call``; its interpret
+    mode (ROFL_PALLAS=interp) compiles the whole body with XLA:CPU instead,
+    which took 28 minutes for the one-bit ladder alone on 8 shared CPUs and
+    makes the windowed bodies impractical."""
+    import jax
+    import jax.numpy as jnp
+
+    def fori_loop(lower, upper, body, val, **_):
+        for i in range(lower, upper):
+            val = body(jnp.int32(i), val)
+        return val
+
+    refs = [_EagerRef(jnp.asarray(x)) for x in inputs]
+    outs = [_EagerRef(jnp.zeros_like(refs[-1].value)) for _ in range(n_out)]
+    with jax.disable_jit(), mock.patch.object(jax.lax, "fori_loop", fori_loop):
+        kernel(*refs, *outs)
+    return [o.value for o in outs]
+
+
+def jax_ladder(kind: str, arg: str) -> list:
+    """One ladder of the JAX package on ladder_inputs, as encodings:
+    ``scalar_mul``'s body at ROFL_SMUL_W = arg (chosen as its wrapper
+    chooses it, ``_smul_kernel_and_tile``) on the per-lane scalars, or
+    ``shared_scalar_mul``'s ``_shared_mul_kernel`` on the shared scalar named
+    arg, through run_pallas_body."""
+    from rofl_tpu.ops import fe as jfe
+    from rofl_tpu.ops import kernels as jkernels
+    from rofl_tpu.spec import ristretto as JSR
+
+    inputs = ladder_inputs()
+    points = [JSR.decompress(bytes.fromhex(h)) for h in inputs["points"]]
+    p = [jfe.pack_scalars([getattr(q, c) for q in points]) for c in "XYZT"]
+    if kind == "scalar_mul":
+        with mock.patch.dict(os.environ, {"ROFL_SMUL_W": arg}):
+            kernel, _ = jkernels._smul_kernel_and_tile()
+        k = jfe.pack_scalars([int(h, 16) for h in inputs["scalars"]])
+    else:
+        kernel = jkernels._shared_mul_kernel
+        k = jfe.pack_scalars([int(inputs["shared_scalars"][arg], 16)])
+    coords = [jfe.unpack_scalars(np.asarray(c)) for c in run_pallas_body(kernel, [k, *p], 4)]
+    return [JSR.RistrettoPoint(*c).compress().hex() for c in zip(*coords)]
+
+
+LADDER_JOBS = [("scalar_mul", str(w)) for w in LADDER_WINDOWS] + [
+    ("shared_scalar_mul", name) for name in SHARED_KAT_SCALARS]
+
+
+def start_ladders() -> list:
+    """One process for each of LADDER_JOBS running jax_ladder (several
+    minutes of op-by-op dispatch apiece), all started together."""
+    return [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--ladder", *job],
+                             env={**os.environ, "JAX_PLATFORMS": "cpu"},
+                             stdout=subprocess.PIPE, text=True) for job in LADDER_JOBS]
+
+
+def ladder_answers(procs: list) -> dict:
+    """ladder_inputs and what the processes of start_ladders found."""
+    out = {"scalar_mul": {}, "shared_scalar_mul": {}}
+    for (kind, arg), proc in zip(LADDER_JOBS, procs):
+        stdout = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"jax_ladder({kind}, {arg}) exited with {proc.returncode}")
+        out[kind][arg] = json.loads(stdout.strip().splitlines()[-1])
+    return {**ladder_inputs(), **out}
+
+
 def make_kat() -> dict:
     """Run the JAX package on JAX:CPU → the KAT dict (byte strings as hex).
-    The round runs first, on the fixed-base tables the JAX package builds
+    The ladders' processes start first and run beside the rest. The round
+    runs first of the rest, on the fixed-base tables the JAX package builds
     itself; the others are given the port's (torch_port_helpers)."""
+    ladders = start_ladders()
     round_answers = slice_answers()
-    return {"bsgs": bsgs_answers(), "slice": round_answers, "verdicts": verdict_answers()}
+    return {"bsgs": bsgs_answers(), "slice": round_answers, "verdicts": verdict_answers(),
+            "ladders": ladder_answers(ladders)}
 
 
 def load_kat() -> dict:
     with open(KAT_PATH) as f:
         return json.load(f)
+
+
+def ladder_kat() -> tuple:
+    """The KAT's ``ladders`` section, and its points packed for the port on
+    the CPU, an (x, y, z, t) tuple of (16, 8)."""
+    from rofl_tpu_torch.ops import curve
+    from rofl_tpu_torch.spec import ristretto as SR
+
+    ladders = load_kat()["ladders"]
+    points = [SR.decompress(bytes.fromhex(h)) for h in ladders["points"]]
+    return ladders, tuple(curve.pack_points(points, "cpu"))
 
 
 def verdict(name: str, *blobs: bytes) -> bool:
@@ -179,6 +322,9 @@ if __name__ == "__main__":
     from rofl_tpu.utils.cache import setup_cache
 
     setup_cache()
+    if sys.argv[1:2] == ["--ladder"]:
+        print(json.dumps(jax_ladder(*sys.argv[2:4])))
+        sys.exit(0)
     kat = make_kat()
     KAT_PATH.parent.mkdir(parents=True, exist_ok=True)
     with open(KAT_PATH, "w") as f:

@@ -1,5 +1,6 @@
 """rofl_tpu_torch.ops.curve.scalar_mul (on the CPU: the plain version of the
-scalar_mul kernel) against the spec and rofl_tpu.ops.curve (JAX CPU path).
+scalar_mul kernel) against the spec, rofl_tpu.ops.curve (JAX CPU path) and
+the JAX package's Pallas kernel (interpret mode, from the KAT file).
 Results are compared as canonical encodings: the raw (X:Y:Z:T) may differ
 between two ladders. Tolerance: exact equality of the 32-byte encodings."""
 
@@ -14,6 +15,7 @@ from rofl_tpu_torch.ops import kernels as tkernels
 from rofl_tpu_torch.ops import sc as tsc
 from rofl_tpu_torch.spec import ristretto as SR
 from rofl_tpu_torch.spec import scalar as SS
+from test_torch_jax_kat import ladder_kat
 
 torch.set_num_threads(1)  # tiny ops; the suite runs several workers side by side
 rng = np.random.default_rng(255)
@@ -67,3 +69,14 @@ def test_scalar_mul_walks_all_256_bits_and_keeps_batch_shape():
     assert got.x.shape == (16, 2, 2)
     flat = tcurve.PointArray(*[c.reshape(16, 4) for c in got])
     assert encodings(flat) == [q.scalar_mul(v % L).compress() for q, v in zip(POINTS[4:8], big)]
+
+
+def test_scalar_mul_equals_the_jax_pallas_kernel():
+    """Against the JAX package's Pallas scalar_mul at its default one-bit
+    body (interpret mode, from the KAT file tests/data/torch_port_jax_kat.json):
+    k = 0, 1, 2, l-1, 2^256-1 and random ones, the identity and the
+    basepoint among the points."""
+    ladders, p = ladder_kat()
+    k = tfe.to_tensor(tsc.pack_scalars([int(h, 16) for h in ladders["scalars"]]), "cpu")
+    got = tcurve.scalar_mul(tcurve.PointArray(*p), k)
+    assert [e.hex() for e in encodings(got)] == ladders["scalar_mul"]["1"]

@@ -4,7 +4,9 @@
 spec and the one-bit ladder at N = 8, as tests/test_ops_kernels.py holds the
 TPU kernels, for W = 2 and 4: k = 0, 1, l-1, 2^256 - 1 and random scalars,
 the identity and the basepoint as P, and one broadcast scalar for every
-lane. Any other window is refused. Tolerance: exact equality of the 32-byte
+lane; and against the JAX package's Pallas kernel at ROFL_SMUL_W = W
+(interpret mode, from the KAT file tests/data/torch_port_jax_kat.json). Any
+other window is refused. Tolerance: exact equality of the 32-byte
 encodings."""
 
 import numpy as np
@@ -14,6 +16,7 @@ import torch
 from rofl_tpu_torch.ops import curve, fe, kernels, sc
 from rofl_tpu_torch.spec import ristretto as SR
 from rofl_tpu_torch.spec import scalar as SS
+from test_torch_jax_kat import ladder_kat
 
 torch.set_num_threads(1)  # tiny ops; the suite runs several workers side by side
 rng = np.random.default_rng(493)
@@ -47,6 +50,14 @@ def test_windowed_ladder_with_one_scalar_for_every_point(window):
     k = SCALARS[3]
     got = kernels.scalar_mul_window(K_T[:, 3:4].contiguous(), P_T, window)
     assert encodings(got) == [p.scalar_mul(k).compress() for p in POINTS]
+
+
+@pytest.mark.parametrize("window", kernels.WINDOWS)
+def test_windowed_ladder_equals_the_jax_package(window):
+    ladders, p = ladder_kat()
+    k = fe.to_tensor(sc.pack_scalars([int(h, 16) for h in ladders["scalars"]]), "cpu")
+    got = kernels.scalar_mul_window(k, p, window)
+    assert [e.hex() for e in encodings(got)] == ladders["scalar_mul"][str(window)]
 
 
 @pytest.mark.parametrize("window", [0, 1, 3, 8, 16])
