@@ -1,18 +1,21 @@
 """Drive the PyTorch/CUDA port once on the card: build the kernels, hold each
 against its plain version, run the secure-aggregation round, the Σ-protocol
 path (prove → wire → per-lane verify), the L2-norm client round
-(encrypt → wire → verify) and the server's round in the other encrypted
-modes (encrypt → wire → verify → accumulate → extract) at full width.
+(encrypt → wire → verify), the server's round in the other encrypted
+modes (encrypt → wire → verify → accumulate → extract) and the FL runtime
+(a server and four clients over the TCP transport) at full width.
 
     python3 chip_smoke.py
 
 needs one NVIDIA GPU (built for sm_90a: an H100), `nvcc`, and nothing else.
-It imports only ``rofl_tpu_torch``. Every phase prints one JSON line; the
+It imports only ``rofl_tpu_torch`` (and two helpers of its tests that import
+only the port). Every phase prints one JSON line; the
 first failure of any phase ends the run with a non-zero exit code. The last
 line is ``{"ok": true, "device": {...}}``.
 
 Phases:
-  device   the card's name and power limit, torch and CUDA versions
+  device   the card's name and power limit, torch and CUDA versions, and
+           whether grpc, google.protobuf and yaml could be imported there
   build    nvcc builds the kernels of the thirteen wrappers from the twelve
            sources in rofl_tpu_torch/csrc (in parallel) and reports ptxas'
            registers, spill bytes and shared memory for each entry point
@@ -83,9 +86,30 @@ Phases:
            proof or compressed proof is refused, an accumulator of two of
            the three clients extracts None, and one EncRange client at
            check_percentage 0.5 verifies after its wire round trip.
+  fl       the FL runtime end to end: one server (``fl.server``: TrainingState,
+           make_server) and 4 ``FlServiceClient``s and an ``FLObserver`` in
+           one event loop over the port's TCP transport on 127.0.0.1 (an
+           ephemeral port); EncL2, 16 partitions, value range 8, L2 range 16,
+           check_percentage 1.0, FpConfig(16, 7), 2 rounds, eager
+           verification on one thread, the clients' encrypts one at a time
+           (the loop's default executor has one thread: four at once in one
+           interpreter thrash the GIL); the initial global model is
+           models/resnet18_intrinsic_50k.txt (d = 50000); cancelling
+           blindings a round; each client's trainer returns seeded updates of
+           0 or +-1 unit of 2^-7. Each round's extracted sum is held equal to
+           numpy's fixed-point sum of the four updates plus the accumulator's
+           one unit, the final model bit-equal to the numpy float32 replay of
+           the server's update rule, every client ends with DONE and the
+           observer sees every broadcast. Prints fl_round_s_d50000 (the
+           server's time from a round's model broadcast to the next broadcast
+           or DONE), the server's and each client's stage times, the upload
+           bytes and DataBlocks, peak device memory. Then one round in which
+           client 1 flips a byte in the middle of its upload: the server must
+           end failed with the model unchanged.
 Launch counts and lanes launched (the sum of N over a kernel's launches) are
 set to zero just before each path (for l2: its timed run; for modes: each
-mode's three clients and the extract) and read just after it; each path's
+mode's three clients and the extract; for fl: the two honest rounds, not
+the tampered one) and read just after it; each path's
 line prints both. shared_scalar_mul and scalar_mul_window are on no path of either
 package's defaults (the JAX package never calls the first and runs the
 second only under ROFL_SMUL_W > 1): their launches are 0 on every path.
@@ -93,6 +117,8 @@ second only under ROFL_SMUL_W > 1): their launches are 0 on every path.
 
 from __future__ import annotations
 
+import asyncio
+import importlib.util
 import json
 import math
 import re
@@ -100,6 +126,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -118,7 +145,11 @@ from rofl_tpu_torch.crypto import serde_vec as sv  # noqa: E402
 from rofl_tpu_torch.crypto.fp_codec import FpConfig  # noqa: E402
 from rofl_tpu_torch.fl import params as P  # noqa: E402
 from rofl_tpu_torch.fl import wire  # noqa: E402
-from rofl_tpu_torch.ops import bsgs, curve, fe, kernels, sc  # noqa: E402
+from rofl_tpu_torch.fl.client import FlServiceClient  # noqa: E402
+from rofl_tpu_torch.fl.observer import FLObserver  # noqa: E402
+from rofl_tpu_torch.fl.server import ServerConfig, TrainingState, make_server  # noqa: E402
+from rofl_tpu_torch.fl.util import read_model_from_file  # noqa: E402
+from rofl_tpu_torch.ops import bsgs, curve, fe, fixed_base, kernels, sc  # noqa: E402
 from rofl_tpu_torch.spec import field as SF  # noqa: E402
 from rofl_tpu_torch.spec import generators as G  # noqa: E402
 from rofl_tpu_torch.spec import ristretto as SR  # noqa: E402
@@ -130,6 +161,7 @@ from rofl_tpu_torch.spec.merlin import Transcript  # noqa: E402
 sys.path.insert(1, str(Path(__file__).resolve().parent / "tests"))
 from torch_port_edges import (  # noqa: E402
     DECOMPRESS_EDGE_CASES, decompress_edges, spec_decompress)
+from torch_port_fl import flip_middle_byte  # noqa: E402
 
 DEVICE = "cuda"
 D = 50000
@@ -382,8 +414,11 @@ def phase_device() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    # the JAX package's runtime needs these three; the port needs none of them
+    found = {name: importlib.util.find_spec(name) is not None
+             for name in ("grpc", "google.protobuf", "yaml")}
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "python": sys.version.split()[0]})
+          "cuda": torch.version.cuda, "python": sys.version.split()[0], "importable": found})
     return smi
 
 
@@ -1102,9 +1137,11 @@ def phase_round() -> tuple[dict, dict]:
               "elgamal_sum_exact", "small_table_sum_exact", "uncancelled_round_rejected")
     failed = [c for c in checks if not result[c]]
     # two walks (the value and its negative), each of 16 steps: a compress per
-    # step and an add of -mG between steps; the table build adds 32 + 1 more
+    # step and an add of -mG between steps; the table build adds one compress
+    # and a point_add a fixed-base window that holds k <= m (2 for m = 2^12)
+    table_adds = -(-SMALL_TABLE.bit_length() // fixed_base.WINDOW_BITS)
     if (small_launches["compress"] < 2 * giant_steps + 1
-            or small_launches["point_add"] < 2 * (giant_steps - 1) + 32):
+            or small_launches["point_add"] < 2 * (giant_steps - 1) + table_adds):
         failed.append("giant steps did not run on the card")
     failed += [f"{name} was never launched" for name in ROUND_KERNELS if launches[name] == 0]
     if failed:
@@ -1605,6 +1642,178 @@ def phase_modes(l2_metric: float) -> dict:
     return counts_by_mode
 
 
+# -- phase 8: the FL runtime: server and clients over the transport ---------------
+
+FL_SEED = 41
+FL_CLIENTS = 4  # num_clients of configs/mnist_range_e2e.yml and mnist_l2_compressed.yml
+FL_ROUNDS = 2
+FL_MODEL = "models/resnet18_intrinsic_50k.txt"
+FL_KERNELS = ("point_add", "compress", "decompress", "sc_reduce_wide", "sc_mul", "sc_add",
+              "sc_sub", "scalar_mul", "msm_flat", "msm_groups")
+FL_TIMEOUT_S = 300.0
+
+
+class SeededTrainer:
+    """A client's trainer: each round an update of 0 or +-1 unit of 2^-7 a
+    lane, drawn from its own seed (inside the 8-bit range; at d = 50000 the
+    sum of squares stays under the L2 bound of 2^16 units); keeps the units
+    it returned."""
+
+    def __init__(self, seed: int):
+        self.rng = np.random.default_rng(seed)
+        self.bits: dict[int, np.ndarray] = {}
+
+    async def train_for_round(self, config, model: np.ndarray, round_id: int) -> np.ndarray:
+        self.bits[round_id] = self.rng.integers(-1, 2, size=len(model))
+        return (self.bits[round_id] / FP.scale).astype(np.float32)
+
+
+class RoundsSeen:
+    """The observer's evaluator: keeps each broadcast model."""
+
+    def __init__(self):
+        self.models: list[np.ndarray] = []
+
+    def set_weights(self, w):
+        self.models.append(w.copy())
+
+    def evaluate(self):
+        return 0.0, 0.0
+
+
+def fl_config(initial: np.ndarray, rounds: int) -> ServerConfig:
+    return ServerConfig(
+        model_id=1, num_clients=FL_CLIENTS, num_rounds=rounds, learning_rate=1.0,
+        enc_type=P.ENC_L2_TYPE, initial_model=initial, lazy_verification=False,
+        verification_threads=1, write_model_file=False, bench_dir=None, device=DEVICE,
+        crypto=P.CryptoConfig(value_range=8, n_partition=16, l2_value_range=16,
+                              check_percentage=1.0, enc_type=P.ENC_L2_TYPE, fp=FP))
+
+
+async def fl_run(initial: np.ndarray, rounds: int, rng: np.random.Generator, tampered=()):
+    """One server, FL_CLIENTS clients and an observer in this event loop,
+    over the transport on 127.0.0.1; until the server is done or has
+    failed. Returns (state, clients, trainers, seen, broadcast times)."""
+    # The four clients share this interpreter, and every launch releases the
+    # GIL: four encrypts at once on the card took 55-57 s each, against
+    # 2.6-5.5 s one at a time (PERF.md §5). So the loop's default executor,
+    # on which a client encrypts, runs one encrypt at a time, as four client
+    # processes would not share one GIL.
+    asyncio.get_running_loop().set_default_executor(ThreadPoolExecutor(1))
+    state = TrainingState(fl_config(initial, rounds))
+    marks: list[float] = []  # perf_counter at each model broadcast and at DONE
+    for name in ("broadcast_global_model", "broadcast_done"):
+        def timed(broadcast=getattr(state, name)):
+            marks.append(time.perf_counter())
+            return broadcast()
+        setattr(state, name, timed)
+    blindings = {r: pedersen.cancelling_scalar_limbs(FL_CLIENTS, D, rng, DEVICE)
+                 for r in range(rounds)}
+    server = make_server({1: state}, "127.0.0.1:0")
+    await server.start()
+    address = f"127.0.0.1:{server.port}"
+    seen = RoundsSeen()
+    observer = FLObserver(address, 1, seen)
+    tasks = [asyncio.create_task(observer.observe())]
+    try:
+        while not state.observer_queues:
+            await asyncio.sleep(0.01)
+        trainers = [SeededTrainer(FL_SEED + 100 * rounds + i) for i in range(FL_CLIENTS)]
+        clients = [FlServiceClient(address, 1, i, trainers[i], device=DEVICE,
+                                   blinding_fn=lambda r, n, i=i: blindings[r][i])
+                   for i in range(FL_CLIENTS)]
+        for i in tampered:
+            flip_middle_byte(clients[i])
+        tasks += [asyncio.create_task(c.train_model()) for c in clients]
+        await asyncio.wait_for(state.done_event.wait(), FL_TIMEOUT_S)
+        if state.status == "done":
+            await asyncio.wait_for(asyncio.gather(*tasks), FL_TIMEOUT_S)
+        torch.cuda.synchronize()
+    finally:
+        for t in tasks:
+            t.cancel()
+        await asyncio.gather(*tasks, return_exceptions=True)
+        await server.stop(0.5)
+        state.close()
+    return state, clients, trainers, seen, marks, observer
+
+
+def fl_server_ms(deltas: list) -> dict:
+    """A round's TimeState deltas, named: the server records each upload as
+    it arrives, then the last accumulate, the extract and the update (after
+    the eager wait for the round's verifications)."""
+    n = FL_CLIENTS - 1
+    return {"uploads_after_the_first": deltas[:n], "to_last_accumulate": deltas[n],
+            "extract": deltas[n + 1], "verify_wait_and_update": deltas[n + 2]}
+
+
+def fl_client_stages(log: dict) -> dict:
+    """A client's round: its TimeState deltas, named, and its upload."""
+    names = ("receive_ms", "train_ms", "encrypt_ms", "send_ms")
+    return {**dict(zip(names, log["deltas_ms"])), "upload_bytes": log["sent_bytes"],
+            "data_blocks": log["blocks"]}
+
+
+def phase_fl() -> dict:
+    """Four clients, two EncL2 rounds at d = 50000 through the server, then
+    one round with a tampered upload."""
+    rng = np.random.default_rng(FL_SEED)
+    initial = read_model_from_file(FL_MODEL)
+    start_path()
+    t0 = time.perf_counter()
+    state, clients, trainers, seen, marks, observer = asyncio.run(
+        fl_run(initial, FL_ROUNDS, rng))
+    wall = time.perf_counter() - t0
+    counts = path_counts()
+    launches = counts["launches"]
+    peak = torch.cuda.max_memory_allocated()
+
+    checks = {"initial_model_d50000": initial.shape == (D,) and initial.dtype == np.float32,
+              "status_done": state.status == "done",
+              "clients_done": [c.done_status for c in clients] == [wire.STATUS_DONE] * FL_CLIENTS,
+              "observer_saw_every_round": [e[0] for e in observer.evals] == list(range(FL_ROUNDS))}
+    want = initial.copy()
+    for r in range(FL_ROUNDS):
+        # the accumulator's (B, B) start adds one unit to the clients' sum
+        units = sum(t.bits[r] for t in trainers) + 1
+        extracted = (units / FP.scale).astype(np.float32)
+        got = next((s.extracted for s in state.rounds if s.round_id == r), None)
+        checks[f"round_{r}_extract_exact"] = bool(
+            got is not None and got.shape == (D,) and np.isfinite(got).all()
+            and np.array_equal(got, extracted))
+        checks[f"observer_round_{r}_model"] = bool(
+            r < len(seen.models) and np.array_equal(seen.models[r], want))
+        want = want + extracted * (1.0 / FL_CLIENTS) * 1.0  # the server's float32 rule
+    checks["final_model_bit_equal_to_numpy_replay"] = bool(
+        state.global_model.dtype == np.float32 and np.array_equal(state.global_model, want))
+    rounds = sorted(state.rounds, key=lambda s: s.round_id)
+    result = {
+        "phase": "fl", "d": D, "clients": FL_CLIENTS, "rounds": FL_ROUNDS, "enc_type": "EncL2",
+        "transport": "tcp 127.0.0.1", "model": FL_MODEL, "fp": [FP.n_bits, FP.n_frac],
+        "n_partition": 16, "value_range": 8, "l2_value_range": 16, "check_percentage": 1.0,
+        "verification": "eager, 1 thread", "seed": FL_SEED,
+        "fl_round_s_d50000": [b - a for a, b in zip(marks, marks[1:])],
+        "wall_s": wall,
+        "server_ms": {r.round_id: fl_server_ms(r.time_state.deltas_ms()) for r in rounds},
+        "client_stages": {c.client_id: {r: fl_client_stages(log)
+                                        for r, log in sorted(c.round_log.items())}
+                          for c in clients},
+        "peak_device_bytes": peak, **checks, "launches": launches, "lanes": counts["lanes"]}
+
+    # the same settings, one round, client 1 flips a byte in its upload
+    tampered, _, _, _, _, _ = asyncio.run(fl_run(initial, 1, rng, tampered=(1,)))
+    restore_counts(counts)
+    checks["tampered_round_failed"] = tampered.status == "failed"
+    checks["tampered_model_unchanged"] = bool(np.array_equal(tampered.global_model, initial))
+    result.update({k: checks[k] for k in ("tampered_round_failed", "tampered_model_unchanged")})
+    emit(result)
+    failed = [name for name, ok in checks.items() if not ok]
+    failed += [f"{name} was never launched" for name in FL_KERNELS if launches[name] == 0]
+    if failed:
+        sys.exit(f"fl failed: {failed}")
+    return counts
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
@@ -1613,7 +1822,7 @@ def main() -> None:
     sigma_counts = phase_sigma(state)
     l2_counts, l2_metric = phase_l2()
     counts_by_path = {"round": round_counts, "sigma": sigma_counts, "l2": l2_counts,
-                      **phase_modes(l2_metric)}
+                      **phase_modes(l2_metric), "fl": phase_fl()}
     print(smi, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "lanes",
             "lanes_by_path", "match", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -18,8 +18,9 @@ from .crypto.compressed_rand_proof import CompressedRandProof
 from .crypto.fp_codec import FpConfig
 from .crypto.pedersen import ElGamalPairArray
 from .crypto.range_proof import RangeProof
-from .fl.params import (PLAIN_TYPE, Accumulator, EncParamsL2, EncParamsL2Compressed,
-                        EncParamsRange, EncParamsRangeCompressed)
+from .fl.params import (PLAIN_TYPE, Accumulator, CryptoConfig, EncParamsL2,
+                        EncParamsL2Compressed, EncParamsRange, EncParamsRangeCompressed)
+from .fl.server import ServerConfig
 from .ops import fe
 from .ops.curve import PointArray
 
@@ -254,3 +255,24 @@ def accumulator_to_numpy(acc: Accumulator) -> tuple:
     (without the device)."""
     state = acc.plain.copy() if acc.enc_type == PLAIN_TYPE else pair_to_numpy(acc.pairs)
     return acc.enc_type, acc.size, acc.fp, acc.bsgs_m, state
+
+
+# -- the FL server's configuration ---------------------------------------------------
+
+
+def crypto_config_from_dict(d) -> CryptoConfig:
+    """A ``rofl_tpu.fl.params.CryptoConfig`` as ``dataclasses.asdict`` gives
+    it (its ``fp`` a dict too) → the port's."""
+    return CryptoConfig(**{**d, "fp": FpConfig(**d["fp"])})
+
+
+def server_config_from_dict(d, device="cuda") -> ServerConfig:
+    """A ``rofl_tpu.fl.server.ServerConfig`` as ``dataclasses.asdict`` gives
+    it (plain values and a numpy initial model) → the port's, on `device`;
+    the initial model as a float32 copy."""
+    initial = d["initial_model"]
+    return ServerConfig(**{
+        **d, "crypto": crypto_config_from_dict(d["crypto"]),
+        "model_config": dict(d["model_config"]),
+        "initial_model": None if initial is None else np.array(initial, np.float32),
+        "device": device})

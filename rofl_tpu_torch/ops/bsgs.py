@@ -27,7 +27,7 @@ import math
 
 import torch
 
-from . import curve, fe, sc
+from . import curve, fe, fixed_base, sc
 from .curve import PointArray
 from ..spec import ristretto as SR
 
@@ -54,8 +54,9 @@ def sort_table(keys: torch.Tensor, values: torch.Tensor):
 def build_table(m: int, device="cuda"):
     """(sorted_keys (m+1, 8) int32, values (m+1,) int32) on `device`.
 
-    k*G for k in 0..m via one fixed-base multiply, then one batched
-    compress and a sort on the device.
+    k*G for k in 0..m via one fixed-base multiply over the windows that
+    hold k's digits (k is public), then one batched compress and a sort on
+    the device.
     """
     device = fe.canonical_device(device)
     if (m, device) in _tables:
@@ -67,7 +68,9 @@ def build_table(m: int, device="cuda"):
     k_limbs[0] = (ks & 0xFFFF).to(fe.DTYPE)
     k_limbs[1] = ((ks >> 16) & 0xFFFF).to(fe.DTYPE)
     k_limbs[2] = (ks >> 32).to(fe.DTYPE)
-    tab = pedersen.base_B().mul(k_limbs)
+    windows = -(-m.bit_length() // fixed_base.WINDOW_BITS)
+    table = PointArray(*[c[:, :windows] for c in pedersen.base_B().table(device)])
+    tab = fixed_base.mul(table, k_limbs)
     keys = _limbs_to_keys(curve.compress(tab))  # (8, m+1)
     _tables[(m, device)] = sort_table(keys, ks.to(torch.int32))
     return _tables[(m, device)]

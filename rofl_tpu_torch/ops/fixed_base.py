@@ -71,12 +71,13 @@ def _digits(scalars: torch.Tensor) -> torch.Tensor:
 def mul(table: PointArray, scalars: torch.Tensor) -> PointArray:
     """Batched fixed-base scalar mul: scalars (16, N) canonical → points.
 
-    Per window: gather the digit's table entry for every lane, accumulate
-    with one batched add."""
+    Per window of the table: gather the digit's table entry for every lane,
+    accumulate with one batched add. A table of the first w windows
+    multiplies scalars below 2^(8w)."""
     digits = _digits(scalars)
     n = scalars.shape[1]
     acc = PointArray(*[c.expand(16, n).contiguous() for c in curve.identity((n,), table.device)])
-    for w in range(N_WINDOWS):
+    for w in range(table.x.shape[1]):
         entry = PointArray(*[torch.index_select(c[:, w], 1, digits[w]) for c in table])
         acc = curve.add(acc, entry)
     return acc

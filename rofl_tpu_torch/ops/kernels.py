@@ -54,6 +54,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -92,6 +93,9 @@ LAUNCHES = {name: 0 for name in KERNEL_SOURCES}
 # (the MSMs: their terms), so that a launch of 50 000 lanes and one of 2
 # weigh what they do.
 LANES = {name: 0 for name in KERNEL_SOURCES}
+# The FL server and its clients launch from several threads: the build and
+# the two counts are updated under this lock.
+_lock = threading.Lock()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -154,8 +158,13 @@ def build_kernels() -> dict:
     """Compile (where not built yet) and load all the kernels; returns the C
     functions by kernel name. One compiler a source, all at the same time,
     each splitting its device code over the cores (--split-compile=0)."""
-    if len(_functions) == len(_ARGTYPES) + len(_HELPERS):
-        return _functions
+    with _lock:
+        if len(_functions) < len(_ARGTYPES) + len(_HELPERS):
+            _build_and_load()
+    return _functions
+
+
+def _build_and_load() -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
     running = {}
     for src in dict.fromkeys(KERNEL_SOURCES.values()):
@@ -181,7 +190,6 @@ def build_kernels() -> dict:
         fn.argtypes = argtypes
         fn.restype = _I
         _functions[name] = fn
-    return _functions
 
 
 def _launch(name: str, device: torch.device, lanes: int, *args) -> None:
@@ -193,8 +201,9 @@ def _launch(name: str, device: torch.device, lanes: int, *args) -> None:
         err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-    LAUNCHES[name] += 1
-    LANES[name] += lanes
+    with _lock:
+        LAUNCHES[name] += 1
+        LANES[name] += lanes
 
 
 def _check_coords(what: str, coords, device: torch.device, lanes: tuple) -> None:

@@ -1,4 +1,6 @@
-"""The CUDA kernels against their plain torch versions, on the card.
+"""The CUDA kernels against their plain torch versions, on the card; the
+launch counts under threads; and FL rounds (Plain, EncRange) at d = 64 with
+the crypto on the card, over the port's transport.
 
 Needs an NVIDIA GPU and nvcc, so every test carries the ``gpu`` marker and the
 CPU command deselects them with ``-m "not gpu"``; the fixture's skip only
@@ -8,15 +10,23 @@ guards a run that selects them without a card. On the card:
 
 ``chip_smoke.py`` makes the same comparison at the full width of the round."""
 
+import sys
+import threading
+
 import numpy as np
 import pytest
 import torch
 
+from rofl_tpu_torch.crypto import pedersen
+from rofl_tpu_torch.fl import params as P
+from rofl_tpu_torch.fl import wire
+from rofl_tpu_torch.fl.server import ServerConfig
 from rofl_tpu_torch.ops import curve, fe, kernels, sc
 from rofl_tpu_torch.spec import ristretto as SR
 from rofl_tpu_torch.spec import field as SF
 from rofl_tpu_torch.spec import scalar as SS
 from torch_port_edges import DECOMPRESS_EDGE_CASES, decompress_edges, spec_decompress
+from torch_port_fl import cancelling_fns, run_fl
 
 pytestmark = pytest.mark.gpu
 
@@ -349,3 +359,51 @@ def test_new_ladder_wrappers_refuse_what_the_kernels_do_not_take(card):
         kernels.shared_scalar_mul(k, p)  # eight scalars, not one
     with pytest.raises(ValueError):
         kernels.shared_scalar_mul(k[:, :1], tuple(c[:, ::2] for c in operands(16, card, 7)[0]))
+
+
+def test_launch_counts_lose_no_update_across_threads(card):
+    """Eight threads launch sc_add at once, with a short switch interval:
+    every launch and every lane is counted."""
+    a = fe.to_tensor(sc.pack_scalars(list(range(33))), card)
+    before, lanes_before = kernels.LAUNCHES["sc_add"], kernels.LANES["sc_add"]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [kernels.sc_add(a, a) for _ in range(200)])
+                   for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["sc_add"] - before == 8 * 200
+    assert kernels.LANES["sc_add"] - lanes_before == 8 * 200 * 33
+
+
+@pytest.mark.parametrize("enc_type", [P.PLAIN_TYPE, P.ENC_RANGE_TYPE])
+def test_fl_round_on_the_card(card, enc_type):
+    """One round of 3 DummyTrainer clients at d = 64 over the transport, the
+    crypto on the card: Plain gives 0.001, EncRange (cancelling blindings,
+    0.001 rounds to 0) the accumulator's one unit, 1/128 / 3."""
+    d, n = 64, 3
+    cfg = ServerConfig(num_clients=n, num_params=d, num_rounds=1, enc_type=enc_type,
+                       crypto=P.CryptoConfig(value_range=8, n_partition=1, enc_type=enc_type),
+                       write_model_file=False, bench_dir=None, device=card)
+    rng = np.random.default_rng(64 + enc_type)
+    fns = cancelling_fns({0: pedersen.cancelling_scalar_limbs(n, d, rng, card)})
+    before = dict(kernels.LAUNCHES)
+    state, clients = run_fl(cfg, n, blinding_fns=fns, timeout=300)
+    assert state.status == "done"
+    assert [c.done_status for c in clients] == [wire.STATUS_DONE] * n
+    if enc_type == P.PLAIN_TYPE:
+        np.testing.assert_allclose(state.global_model, np.full(d, 0.001, np.float32), atol=1e-6)
+    else:
+        np.testing.assert_array_equal(state.rounds[0].extracted, np.full(d, 1 / 128, np.float32))
+        np.testing.assert_allclose(state.global_model, np.full(d, np.float32(1 / 128) / n,
+                                                               np.float32), atol=1e-6)
+        for name in ("point_add", "compress", "decompress", "scalar_mul", "msm_flat",
+                     "msm_groups", "sc_mul"):
+            assert kernels.LAUNCHES[name] > before[name], name

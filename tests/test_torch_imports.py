@@ -1,5 +1,6 @@
 """The port stands alone: no module of rofl_tpu_torch, and not chip_smoke.py,
-imports jax, flax or anything of rofl_tpu."""
+imports jax, flax or anything of rofl_tpu, nor grpc, google.protobuf or yaml:
+the port speaks its own wire format and transport, and needs none of them."""
 
 import ast
 from pathlib import Path
@@ -7,8 +8,10 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "rofl_tpu")
-FILES = sorted((ROOT / "rofl_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "flax", "rofl_tpu", "grpc", "google.protobuf", "yaml")
+# The helpers of the tests that run on the card import only the port too.
+FILES = sorted((ROOT / "rofl_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
+    ROOT / "tests" / "torch_port_edges.py", ROOT / "tests" / "torch_port_fl.py"]
 
 
 def imported_modules(path: Path) -> list[str]:
@@ -22,7 +25,8 @@ def imported_modules(path: Path) -> list[str]:
 
 
 def test_the_port_has_the_modules_of_the_slice():
-    have = {str(p.relative_to(ROOT / "rofl_tpu_torch")) for p in FILES[:-1]}
+    have = {str(p.relative_to(ROOT / "rofl_tpu_torch")) for p in FILES
+            if p.is_relative_to(ROOT / "rofl_tpu_torch")}
     want = {"bindings.py", "convert.py", "spec/field.py", "spec/scalar.py",
             "spec/ristretto.py", "spec/generators.py", "spec/keccak.py", "spec/merlin.py",
             "crypto/fp_codec.py", "crypto/pedersen.py", "crypto/serde_vec.py",
@@ -30,7 +34,9 @@ def test_the_port_has_the_modules_of_the_slice():
             "ops/sc.py", "ops/kernels.py", "ops/curve.py", "ops/fixed_base.py", "ops/bsgs.py",
             "ops/keccak_batch.py", "ops/msm.py", "utils/native.py", "crypto/range_proof.py",
             "crypto/range_proof_vec.py", "crypto/l2_range_proof.py", "fl/params.py",
-            "fl/wire.py", "crypto/compressed_rand_proof.py"}
+            "fl/wire.py", "crypto/compressed_rand_proof.py", "fl/util.py", "fl/logs.py",
+            "fl/transport.py", "fl/server.py", "fl/client.py", "fl/trainclient.py",
+            "fl/observer.py"}
     assert want <= have
 
 
