@@ -16,7 +16,7 @@ line is ``{"ok": true, "device": {...}}``.
 Phases:
   device   the card's name and power limit, torch and CUDA versions, and
            whether grpc, google.protobuf and yaml could be imported there
-  build    nvcc builds the kernels of the thirteen wrappers from the twelve
+  build    nvcc builds the kernels of the fifteen wrappers from the fourteen
            sources in rofl_tpu_torch/csrc (in parallel) and reports ptxas'
            registers, spill bytes and shared memory for each entry point
   compress_first
@@ -37,7 +37,7 @@ Phases:
            77 and 50000
   kernels  point_add, point_double, compress, decompress, sc_reduce_wide,
            sc_mul, sc_add, sc_sub, scalar_mul, msm_flat, msm_groups,
-           shared_scalar_mul, scalar_mul_window against their plain torch
+           shared_scalar_mul, scalar_mul_window, point_sum, sc_sum against their plain torch
            versions on the card, at the lane counts the paths use and at
            N = 1 and 77, random and edge inputs, canonical limbs bit-equal
            (the ladders, the MSMs: canonical encodings of the results; their
@@ -49,8 +49,12 @@ Phases:
            at N = 50000 for k = 0, 1, 2, l-1, 2^256 - 1 and scalars of low,
            high and random Hamming weight, each timed beside the nonzero
            digits of its width-5 NAF; scalar_mul_window at W = 2 and 4, per
-           lane and broadcast; the point_add and sc_add chains of tree_sum and sc.sum_reduce
-           timed at 50000 lanes
+           lane and broadcast; point_sum and sc_sum at the paths' layouts
+           (outer, R, inner) (check_sums: tree_sum of d, the provers' A sums,
+           the IPA's groups, the clients' sums, the range verifier's chunk
+           sums, a ragged length), sc_sum bit-equal, point_sum as encodings,
+           each timed beside its plain version and the halving chain of
+           point_add / sc_add launches it replaced
   round    d = 50000, 4 clients, FpConfig(16, 7), through ``bindings``:
            cancelling blindings (keyed Keccak XOF on the card, reduced mod l
            by sc_reduce_wide) -> commit -> add_commitments -> extract_values
@@ -280,6 +284,15 @@ KERNEL_FACTS = {
         source="rofl_tpu_torch/csrc/scalar_mul_window.cu",
         replaces="rofl_tpu/ops/kernels.py:493",
         madds=least_ladder_madds(), bytes=9 * LIMBS),
+    # The sums' bound is computed per layout by sum_bound: a term read once
+    # and a sum written once (a point, a scalar), against R - 1 additions
+    # an output lane (a point addition; 8 word additions for scalars).
+    "point_sum": dict(
+        source="rofl_tpu_torch/csrc/point_sum.cu", replaces="rofl_tpu/ops/kernels.py:573",
+        replaces_also="rofl_tpu/ops/kernels.py:615", madds=POINT_ADD_MADDS, bytes=4 * LIMBS),
+    "sc_sum": dict(
+        source="rofl_tpu_torch/csrc/sc_sum.cu", replaces="rofl_tpu/ops/kernels.py:1212",
+        replaces_also="rofl_tpu/ops/kernels.py:627", madds=8, bytes=LIMBS),
 }
 NEW_KERNELS = ("sc_mul", "sc_add", "sc_sub", "scalar_mul")
 # Lane counts the round gives the kernels (fixed-base tables: 1 and 8192;
@@ -396,6 +409,18 @@ def shared_bound_ms(n: int, k: int) -> tuple[float, str]:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def sum_bound(name: str, outer: int, r: int, inner: int) -> dict:
+    """Least time of a sum over (outer, r, inner): the bytes (each term read
+    once, each sum written once) over the memory rate, or r - 1 additions an
+    output lane over the int32 rate; both, and the larger as the bound."""
+    f, m = KERNEL_FACTS[name], outer * inner
+    t_bytes = (outer * r * inner + m) * f["bytes"] / HBM_BYTES_PER_S
+    t_ops = max(r - 1, 0) * m * f["madds"] * 2 / INT32_OPS_PER_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes_ms": 1e3 * t_bytes, "bound_ops_ms": 1e3 * t_ops}
+
+
 def bound_ms(name: str, n: int, madds: float | None = None) -> tuple[float, str]:
     """Least time the card could take for n lanes: every input read once and
     every output written once over the memory rate, or the multiply-adds
@@ -425,7 +450,7 @@ def phase_device() -> str:
 # -- phase 2: build ------------------------------------------------------------
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
     t0 = time.perf_counter()
     kernels.build_kernels()
     seconds = time.perf_counter() - t0
@@ -448,6 +473,7 @@ def phase_build() -> None:
                             "shared_bytes": int(smem.group(1)) if smem else 0})
         ptxas[name] = entries
     emit({"phase": "build", "seconds": seconds, "nvcc": version, "ptxas": ptxas})
+    return ptxas
 
 
 # -- phase 3: kernels against their plain versions -----------------------------
@@ -784,11 +810,11 @@ def phase_kernels() -> dict:
                 lambda: kernels.scalar_mul(k, p), reps=2, rounds=3)
     check_msm(records, hold, rng)
     check_shared_and_window(records, hold, rng)
-    chains = time_chains(rng)
+    check_sums(records, hold, rng)
     torch.cuda.synchronize()
     bad = [name for name, r in records.items() if not r["match"]]
     emit({"phase": "kernels", "tolerance": "canonical limbs and masks bit-equal (0)",
-          "kernels": list(records.values()), "chains": chains})
+          "kernels": list(records.values())})
     if bad:
         sys.exit(f"kernels disagree with their plain versions: {bad}")
     return records
@@ -952,35 +978,73 @@ def check_shared_and_window(records: dict, hold, rng: np.random.Generator) -> No
     torch.cuda.empty_cache()
 
 
-def time_chains(rng: np.random.Generator) -> dict:
-    """Rows 13 and 14 of the TPU-kernel table: the reductions that the port
-    runs as chains of point_add (curve.tree_sum: EncL2Compressed's verify sums
-    its d square commitments so) and sc_add launches (sc.sum_reduce: the
-    compressed rand proof's inner products), timed at d = 50000 lanes; the
-    bound is one read of the lanes at the memory rate."""
-    p, _ = test_points(D, rng)
-    a, _ = test_scalars(D, rng)
-    before = dict(kernels.LAUNCHES)
-    curve.tree_sum(curve.PointArray(*p))
-    tree_launches = kernels.LAUNCHES["point_add"] - before["point_add"]
-    sc.sum_reduce(a, axis=0)
-    sum_launches = kernels.LAUNCHES["sc_add"] - before["sc_add"]
-    return {
-        "tree_sum": {"n": D, "point_add_launches": tree_launches,
-                     "ms": device_ms(lambda: curve.tree_sum(curve.PointArray(*p)), reps=3,
-                                     rounds=3),
-                     "bound_ms": 1e3 * D * 4 * LIMBS / HBM_BYTES_PER_S, "bound_by": "bytes"},
-        "sc_sum_reduce": {"n": D, "sc_add_launches": sum_launches,
-                          "ms": device_ms(lambda: sc.sum_reduce(a, axis=0), reps=3, rounds=3),
-                          "bound_ms": 1e3 * D * LIMBS / HBM_BYTES_PER_S, "bound_by": "bytes"},
-    }
+# The sums against their plain versions (halving chains of the plain adds)
+# at the paths' layouts (outer, R, inner): tree_sum of d (EncL2's verify), the
+# provers' A sums (16 chunks of 32768), the IPA's groups (32 of h, h = 16384
+# .. 1), the clients' commitment and blinding sums, the range verifier's
+# chunk-axis sums, and a ragged length; sc_sum also on 100001 terms of l - 1.
+# Each timed beside its plain version and beside the chain it replaced:
+# the same halving loop run on point_add / sc_add launches
+# (kernels.halving_sums), which no path runs any more.
+SUM_LAYOUTS = ((1, D, 1), (16, 32768, 1), (32, 1, 1), (32, 2, 1), (32, 3, 1), (32, 77, 1),
+               (32, 16384, 1), (1, N_CLIENTS, D), (1, 16, 32768), (1, 100001, 1))
+
+
+def check_sums(records: dict, hold, rng: np.random.Generator) -> None:
+    waves = kernels.sum_blocks_per_wave(torch.device(DEVICE))
+    for name in ("point_sum", "sc_sum"):
+        records[name].update(checked_lanes=[list(x) for x in SUM_LAYOUTS], layouts=[],
+                             library_ms=None)
+    for layout in SUM_LAYOUTS:
+        n = layout[0] * layout[1] * layout[2]
+        p, _ = test_points(n, rng)
+        a, _ = test_scalars(n, rng)
+        cases = {
+            "point_sum": (lambda: kernels.point_sum(p, *layout),
+                          lambda: kernels.point_sum_ref(p, *layout),
+                          lambda: kernels.halving_sums(p, *layout, kernels.point_add,
+                                                       kernels.IDENTITY_PAD)),
+            "sc_sum": (lambda: kernels.sc_sum(a, *layout),
+                       lambda: kernels.sc_sum_ref(a, *layout),
+                       lambda: kernels.halving_sums(
+                           (a,), *layout, lambda x, y: (kernels.sc_add(x[0], y[0]),),
+                           (fe.zeros,))),
+        }
+        for name, (kernel_fn, plain_fn, chain_fn) in cases.items():
+            got = kernel_fn()
+            want, plain_seconds = synced(plain_fn)
+            if name == "point_sum":  # another order of additions: compare encodings
+                got, want = (kernels.compress(got),), (kernels.compress(want),)
+            else:
+                got, want = (got,), (want,)
+            match = max_abs_err(got, want, field=False) == 0
+            hold(name, got, want, field=False)
+            row = {"layout": list(layout), "plan": list(kernels.sum_plan(*layout, waves)),
+                   "match": match, "ms": device_ms(kernel_fn, reps=5, rounds=3),
+                   "chain_ms": device_ms(chain_fn, reps=3, rounds=3),
+                   "plain_ms": 1e3 * plain_seconds, **sum_bound(name, *layout)}
+            records[name]["layouts"].append(row)
+            if layout == (1, D, 1):
+                records[name].update(n=D, ms=row["ms"], chain_ms=row["chain_ms"],
+                                     plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                                     bound_by=row["bound_by"],
+                                     bound_bytes_ms=row["bound_bytes_ms"],
+                                     bound_ops_ms=row["bound_ops_ms"])
+        del p, a
+        torch.cuda.empty_cache()
+    top = fe.to_tensor(sc.pack_scalars([SS.L - 1]), DEVICE).expand(16, 100001).contiguous()
+    got = kernels.sc_sum(top, 1, 100001, 1)
+    hold("sc_sum", (got,), (kernels.sc_sum_ref(top, 1, 100001, 1),), field=False)
+    equal = sc.unpack_scalars(got) == [(SS.L - 1) * 100001 % SS.L]
+    records["sc_sum"]["l_minus_1_100001_equal"] = equal
+    records["sc_sum"]["match"] &= equal
 
 
 # -- phase 4: the round ----------------------------------------------------------
 
 
 ROUND_KERNELS = ("point_add", "point_double", "compress", "decompress", "sc_reduce_wide",
-                 "sc_add", "sc_sub")
+                 "sc_sub", "point_sum", "sc_sum")
 SIGMA_KERNELS = ("point_add", "compress", "decompress", "sc_reduce_wide") + NEW_KERNELS
 
 
@@ -1024,11 +1088,11 @@ def phase_round() -> tuple[dict, dict]:
     want = (bits.sum(axis=0) / FP.scale).astype(np.float32)
 
     # Pedersen-blob form, through the bindings. The cancelling vector is summed
-    # and negated on the card: sc_add and sc_sub launches.
+    # and negated on the card: sc_sum and sc_sub launches.
     blindings = stage("generate_cancelling_blindings",
                       lambda: bindings.generate_cancelling_blindings(
                           N_CLIENTS, D, rng, device=DEVICE))
-    blinding_launches = {k: kernels.LAUNCHES[k] for k in ("sc_reduce_wide", "sc_add", "sc_sub")}
+    blinding_launches = {k: kernels.LAUNCHES[k] for k in ("sc_reduce_wide", "sc_sum", "sc_sub")}
     blinding_sum = bindings.add_scalars(
         sv.serialize_scalar_vec(np.concatenate(
             [sv.deserialize_scalar_vec(b)[:, :REJECT_LANES] for b in blindings], axis=1)),
@@ -1036,7 +1100,7 @@ def phase_round() -> tuple[dict, dict]:
     blindings_cancel = blinding_sum == sv.serialize_scalar(0)
     # What the stage is made of, each timed apart on the same data: one draw of
     # D scalars (XOF in plain torch + sc_reduce_wide), the sum and negation of
-    # N_CLIENTS - 1 vectors on the card (sc_add, sc_sub), the framing of one
+    # N_CLIENTS - 1 vectors on the card (sc_sum, sc_sub), the framing of one
     # blob on the host, and the same sum as Python integers on the host, which
     # the sum on the card replaced.
     saved = path_counts()
@@ -1356,7 +1420,7 @@ def phase_sigma(state: dict) -> dict:
 L2_SEED = 7
 L2_CFG = P.CryptoConfig(value_range=8, n_partition=16, l2_value_range=16, check_percentage=1.0,
                         enc_type=P.ENC_L2_TYPE, fp=FP)
-L2_KERNELS = ("msm_flat", "msm_groups", "scalar_mul", "compress")
+L2_KERNELS = ("msm_flat", "msm_groups", "scalar_mul", "compress", "point_sum", "sc_sum")
 KAT_PATH = "tests/data/torch_port_l2_kat.json"
 SMALL_D = 7
 
@@ -1495,7 +1559,7 @@ MODES_CLIENTS = 3
 MODES = (("enc_range", P.ENC_RANGE_TYPE), ("enc_range_compressed", P.ENC_RANGE_COMPRESSED_TYPE),
          ("enc_l2_compressed", P.ENC_L2_COMPRESSED_TYPE))
 MODES_KERNELS = ("point_add", "compress", "decompress", "sc_reduce_wide", "sc_mul", "sc_add",
-                 "msm_flat", "msm_groups")
+                 "msm_flat", "msm_groups", "point_sum", "sc_sum")
 # the per-lane ladder: EncRange's rand-proof verify, EncL2Compressed's square proofs
 LADDER_MODES = ("enc_range", "enc_l2_compressed")
 # EncL2Compressed's updates must also pass the L2 bound at L2 range 16: the sum
@@ -1649,7 +1713,7 @@ FL_CLIENTS = 4  # num_clients of configs/mnist_range_e2e.yml and mnist_l2_compre
 FL_ROUNDS = 2
 FL_MODEL = "models/resnet18_intrinsic_50k.txt"
 FL_KERNELS = ("point_add", "compress", "decompress", "sc_reduce_wide", "sc_mul", "sc_add",
-              "sc_sub", "scalar_mul", "msm_flat", "msm_groups")
+              "sc_sub", "scalar_mul", "msm_flat", "msm_groups", "point_sum", "sc_sum")
 FL_TIMEOUT_S = 300.0
 
 
@@ -1816,7 +1880,7 @@ def phase_fl() -> dict:
 
 def main() -> None:
     smi = phase_device()
-    phase_build()
+    ptxas = phase_build()
     records = phase_kernels()
     round_counts, state = phase_round()
     sigma_counts = phase_sigma(state)
@@ -1829,14 +1893,16 @@ def main() -> None:
             "library_ms", "n", "checked_lanes")
     extra_keys = ("group", "window", "slices", "ms_at_131618", "plain_ms_at_131618",
                   "bound_ms_at_131618", "slices_at_131618", "ms_at_4n", "scalars", "windows",
-                  "scalar_mul_ms_same_inputs", "rotated_share", "valid_share")
+                  "scalar_mul_ms_same_inputs", "rotated_share", "valid_share", "replaces_also",
+                  "chain_ms", "bound_bytes_ms", "bound_ops_ms", "layouts",
+                  "l_minus_1_100001_equal", "ptxas")
     rows = []
     for name, rec in records.items():
         by_path = {path: c["launches"][name] for path, c in counts_by_path.items()}
         lanes_by_path = {path: c["lanes"][name] for path, c in counts_by_path.items()}
         rec = {**rec, **KERNEL_FACTS[name], "launches": sum(by_path.values()),
                "launches_by_path": by_path, "lanes": sum(lanes_by_path.values()),
-               "lanes_by_path": lanes_by_path}
+               "lanes_by_path": lanes_by_path, "ptxas": ptxas.get(name)}
         rows.append({**{k: rec[k] for k in keys}, **{k: rec[k] for k in extra_keys if k in rec}})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -297,7 +297,7 @@ def create_random_blinding_vector(length: int, rng: np.random.Generator | None =
 
 def add_scalars(scalar_blob: bytes, device="cuda") -> bytes:
     """Sum a Vec<Scalar> blob → single 40-byte Scalar blob
-    (bindings32.rs:727-734): log-many ``sc_add`` launches on the card."""
+    (bindings32.rs:727-734): one ``sc_sum`` launch on the card."""
     limbs = fe.to_tensor(sv.deserialize_scalar_vec(scalar_blob), device)
     return sv.serialize_scalar(sc.sum_reduce(limbs))
 

@@ -7,8 +7,8 @@ dealer/party structure collapses into one prover whose vector phases are
 batched device work:
 
   * bit decomposition, l/r vectors, t-poly inner products → ``ops/sc.py``
-    (the ``sc_mul`` / ``sc_add`` / ``sc_sub`` kernels on the card)
-  * A (a point sum) → ``curve.tree_sum(_groups)`` (``point_add`` chains)
+    (the ``sc_mul`` / ``sc_add`` / ``sc_sub`` / ``sc_sum`` kernels on the card)
+  * A (a point sum) → ``curve.tree_sum(_groups)`` (the ``point_sum`` kernel)
   * S, the IPA L/R points and the verifier's single combined sum →
     ``ops/msm.py`` (the MSM kernel on the card)
   * IPA basis folds → ``curve.scalar_mul`` (the ``scalar_mul`` kernel)

@@ -2,7 +2,7 @@
 // lane per CUDA thread: the arithmetic under every curve kernel of the port,
 // csrc/point_add.cu, csrc/point_double.cu, csrc/compress.cu,
 // csrc/decompress.cu, csrc/msm.cu, csrc/scalar_mul.cu,
-// csrc/scalar_mul_window.cu and csrc/shared_scalar_mul.cu.
+// csrc/scalar_mul_window.cu, csrc/shared_scalar_mul.cu and csrc/point_sum.cu.
 //
 // A product is 64 partial products of 32-bit limbs, each one wide
 // multiply-add into a 32-bit limb with a 32-bit carry (operand scanning),
@@ -812,6 +812,33 @@ ROFL_HD ge msm_horner(const uint32_t *sums) {
     acc = ge_add(acc, ge_get_words(sums + w * POINT_WORDS));
   }
   return acc;
+}
+
+// -- the point sums (csrc/point_sum.cu) -----------------------------------
+
+// One thread's run of a sum's terms (rofl::sum_terms_of) added in order from
+// the first, count - 1 complete additions; the identity for no term.
+ROFL_HD ge point_sum_run(const int32_t *px, const int32_t *py, const int32_t *pz,
+                         const int32_t *pt, int64_t n, const rofl::sum_terms &t) {
+  if (t.count == 0) return ge_identity();
+  ge acc = ge_load16(px, py, pz, pt, n, t.first);
+  ROFL_NO_UNROLL
+  for (int64_t k = 1; k < t.count; ++k) {
+    acc = ge_add(acc, ge_load16(px, py, pz, pt, n, t.first + k * t.step));
+  }
+  return acc;
+}
+
+// One level of the fold of a lane's tpl threads' runs, entry 0 of each
+// thread's column of sm: thread v < stride adds thread v + stride's point
+// onto its own. The levels run from tpl / 2 down to 1, a barrier between
+// them; then thread v = 0 of each lane holds the lane's sum.
+ROFL_HD void point_sum_fold(uint32_t *sm, int threads, int tid, int v, int stride) {
+  if (v < stride) {
+    ge_entry_put(sm, threads, tid, 0,
+                 ge_add(ge_entry_get(sm, threads, tid, 0),
+                        ge_entry_get(sm, threads, tid + stride, 0)));
+  }
 }
 
 }  // namespace rofl32

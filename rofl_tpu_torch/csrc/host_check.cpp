@@ -229,4 +229,121 @@ void host_msm(const int32_t *k, int k_lanes, const int32_t *px, const int32_t *p
   }
 }
 
+
+// sc25519.cuh's exact sum of the n scalars of (16, n) a (n may be 0): the
+// column sums (sc_columns_add) and their carry pass and wide reduction
+// (sc_reduce_columns), as csrc/sc_sum.cu runs them. out: (16, 1).
+void host_sc_sum_columns(const int32_t *a, int n, int32_t *out) {
+  uint64_t col[SC_WORDS] = {0, 0, 0, 0, 0, 0, 0, 0};
+  for (int lane = 0; lane < n; ++lane) {
+    uint32_t w[SC_WORDS];
+    sc_load(a, n, lane, w);
+    sc_columns_add(col, w);
+  }
+  uint32_t r[SC_WORDS];
+  sc_reduce_columns(col, r);
+  sc_store(out, 1, 0, r);
+}
+
+namespace {
+
+// One launch of csrc/sc_sum.cu's kernel with `threads` threads a block
+// (tpl dividing it), run block by block and, between the barriers, thread
+// by thread.
+void sc_sum_launch(const int32_t *a, int64_t outer, int64_t R, int64_t inner, int tpl,
+                   int slices, int threads, int32_t *out) {
+  const int64_t m = outer * inner, per_block = threads / tpl;
+  std::vector<uint64_t> sm((std::size_t)SC_WORDS * threads);
+  for (int slice = 0; slice < slices; ++slice) {
+    for (int64_t b = 0; b < (m + per_block - 1) / per_block; ++b) {
+      for (int tid = 0; tid < threads; ++tid) {
+        const int64_t lane = b * per_block + tid / tpl;
+        uint64_t col[SC_WORDS] = {0, 0, 0, 0, 0, 0, 0, 0};
+        if (lane < m) {
+          sc_sum_run(a, outer * R * inner,
+                     sum_terms_of(lane, R, inner, slices, slice, tpl, tid & (tpl - 1)), col);
+        }
+        for (int k = 0; k < SC_WORDS; ++k) sm[k * threads + tid] = col[k];
+      }
+      for (int stride = tpl / 2; stride > 0; stride >>= 1) {
+        for (int tid = 0; tid < threads; ++tid) {
+          sc_sum_fold(sm.data(), threads, tid, tid & (tpl - 1), stride);
+        }
+      }
+      for (int tid = 0; tid < threads; tid += tpl) {
+        const int64_t lane = b * per_block + tid / tpl;
+        if (lane >= m) continue;
+        uint64_t col[SC_WORDS];
+        for (int k = 0; k < SC_WORDS; ++k) col[k] = sm[k * threads + tid];
+        uint32_t r[SC_WORDS];
+        sc_reduce_columns(col, r);
+        sc_store(out, m * slices, slice * m + lane, r);
+      }
+    }
+  }
+}
+
+// The same for csrc/point_sum.cu's kernel.
+void point_sum_launch(const int32_t *px, const int32_t *py, const int32_t *pz,
+                      const int32_t *pt, int64_t outer, int64_t R, int64_t inner, int tpl,
+                      int slices, int threads, int32_t *ox, int32_t *oy, int32_t *oz,
+                      int32_t *ot) {
+  namespace f = rofl32;
+  const int64_t m = outer * inner, per_block = threads / tpl;
+  std::vector<uint32_t> sm((std::size_t)f::POINT_WORDS * threads);
+  for (int slice = 0; slice < slices; ++slice) {
+    for (int64_t b = 0; b < (m + per_block - 1) / per_block; ++b) {
+      for (int tid = 0; tid < threads; ++tid) {
+        const int64_t lane = b * per_block + tid / tpl;
+        sum_terms t = {0, 0, 0};
+        if (lane < m) t = sum_terms_of(lane, R, inner, slices, slice, tpl, tid & (tpl - 1));
+        f::ge_entry_put(sm.data(), threads, tid, 0,
+                        f::point_sum_run(px, py, pz, pt, outer * R * inner, t));
+      }
+      for (int stride = tpl / 2; stride > 0; stride >>= 1) {
+        for (int tid = 0; tid < threads; ++tid) {
+          f::point_sum_fold(sm.data(), threads, tid, tid & (tpl - 1), stride);
+        }
+      }
+      for (int tid = 0; tid < threads; tid += tpl) {
+        const int64_t lane = b * per_block + tid / tpl;
+        if (lane < m) {
+          f::ge_store16(ox, oy, oz, ot, m * slices, slice * m + lane,
+                        f::ge_entry_get(sm.data(), threads, tid, 0));
+        }
+      }
+    }
+  }
+}
+
+}  // namespace
+
+// csrc/sc_sum.cu's grid with `threads` threads a block: the sums mod l over
+// R of (16, outer * R * inner) a, (16, outer * inner) out, with the plan
+// (tpl, slices, tpl2) of kernels.sum_plan; scratch holds
+// (16, slices * outer * inner) where slices > 1.
+void host_sc_sum(const int32_t *a, int outer, int R, int inner, int tpl, int slices, int tpl2,
+                 int threads, int32_t *scratch, int32_t *out) {
+  if (slices == 1) {
+    sc_sum_launch(a, outer, R, inner, tpl, 1, threads, out);
+    return;
+  }
+  sc_sum_launch(a, outer, R, inner, tpl, slices, threads, scratch);
+  sc_sum_launch(scratch, 1, slices, (int64_t)outer * inner, tpl2, 1, threads, out);
+}
+
+// csrc/point_sum.cu's grid, as host_sc_sum: scratch s* and out o* x4.
+void host_point_sum(const int32_t *px, const int32_t *py, const int32_t *pz, const int32_t *pt,
+                    int outer, int R, int inner, int tpl, int slices, int tpl2, int threads,
+                    int32_t *sx, int32_t *sy, int32_t *sz, int32_t *st, int32_t *ox,
+                    int32_t *oy, int32_t *oz, int32_t *ot) {
+  if (slices == 1) {
+    point_sum_launch(px, py, pz, pt, outer, R, inner, tpl, 1, threads, ox, oy, oz, ot);
+    return;
+  }
+  point_sum_launch(px, py, pz, pt, outer, R, inner, tpl, slices, threads, sx, sy, sz, st);
+  point_sum_launch(sx, sy, sz, st, 1, slices, (int64_t)outer * inner, tpl2, 1, threads, ox, oy,
+                   oz, ot);
+}
+
 }  // extern "C"

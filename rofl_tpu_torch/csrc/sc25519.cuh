@@ -200,4 +200,57 @@ ROFL_HD void sc_store(int32_t *out, int64_t n_lanes, int64_t lane,
   }
 }
 
+// -- exact sums (csrc/sc_sum.cu) -------------------------------------------
+
+// A sum of scalars as 8 column sums: column k adds word k of every term.
+// Each term adds below 2^32 to a column, so a column holds up to 2^32 - 1
+// terms without overflow, and the columns of any split of the terms add up
+// to those of the whole: the sum does not depend on the order.
+ROFL_HD void sc_columns_add(uint64_t (&col)[SC_WORDS], const uint32_t (&a)[SC_WORDS]) {
+  ROFL_UNROLL
+  for (int k = 0; k < SC_WORDS; ++k) col[k] += a[k];
+}
+
+// One thread's run of a sum's terms (rofl::sum_terms_of), any 256-bit
+// values, added into its columns.
+ROFL_HD void sc_sum_run(const int32_t *a, int64_t n, const sum_terms &t,
+                        uint64_t (&col)[SC_WORDS]) {
+  ROFL_NO_UNROLL
+  for (int64_t k = 0; k < t.count; ++k) {
+    uint32_t w[SC_WORDS];
+    sc_load(a, n, t.first + k * t.step, w);
+    sc_columns_add(col, w);
+  }
+}
+
+// Columns of fewer than 2^32 terms -> their sum mod l, canonical. One carry
+// pass gives the integer below 2^288 (a column plus the carry into it stays
+// below (2^32 - 1)^2 + 2^32 < 2^64), zero-extended to 16 words for the wide
+// reduction. Equal to a chain of sc_add over canonical terms, in any order.
+ROFL_HD void sc_reduce_columns(const uint64_t (&col)[SC_WORDS], uint32_t (&out)[SC_WORDS]) {
+  uint32_t v[2 * SC_WORDS];
+  uint64_t carry = 0;
+  ROFL_UNROLL
+  for (int k = 0; k < SC_WORDS; ++k) {
+    const uint64_t s = col[k] + carry;
+    v[k] = (uint32_t)s;
+    carry = s >> 32;
+  }
+  v[SC_WORDS] = (uint32_t)carry;
+  ROFL_UNROLL
+  for (int k = SC_WORDS + 1; k < 2 * SC_WORDS; ++k) v[k] = 0;
+  sc_reduce_512(v, out);
+}
+
+// One level of the fold of a lane's tpl threads' columns, laid out
+// [word][thread] in sm (a warp's accesses to one word fall in different
+// banks): thread v < stride adds thread v + stride's columns onto its own.
+// The levels run from tpl / 2 down to 1, a barrier between them.
+ROFL_HD void sc_sum_fold(uint64_t *sm, int threads, int tid, int v, int stride) {
+  if (v < stride) {
+    ROFL_UNROLL
+    for (int k = 0; k < SC_WORDS; ++k) sm[k * threads + tid] += sm[k * threads + tid + stride];
+  }
+}
+
 }  // namespace rofl

@@ -5,8 +5,8 @@
 // dozen integer operations against 192 bytes moved (two scalars read, one
 // written), so the bound on an H100 is the memory. Design: each limb row is
 // read and written coalesced across the warp; either operand may be a single
-// broadcast lane ((16, 1)), read with stride 0. The sums of scalars
-// (ops/sc.py sum_reduce) are chains of this kernel's launches.
+// broadcast lane ((16, 1)), read with stride 0. The sums of scalars are
+// csrc/sc_sum.cu's.
 #include <cuda_runtime.h>
 
 #include "sc25519.cuh"

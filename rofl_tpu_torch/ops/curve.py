@@ -8,8 +8,9 @@ identity and doubling), so every op is branch-free and batchable.
 ``add``, ``double``, ``scalar_mul``, ``compress`` and ``decompress`` go through the wrappers
 in ``ops/kernels.py``: the CUDA kernel for tensors on the card, the plain
 version for tensors on the CPU. ``neg``, ``select``, ``eq`` and
-``elligator_map`` are plain tensor code on both; the sums are chains of
-``point_add`` launches. The JAX package's lane bucketing (padding lane counts
+``elligator_map`` are plain tensor code on both; the sums are one
+``point_sum`` call (on the card one launch, two kernels on the stream at
+most). The JAX package's lane bucketing (padding lane counts
 to share XLA compiles) has no counterpart: nothing is compiled per shape.
 
 Bit-exact with ``rofl_tpu_torch.spec.ristretto`` (== curve25519-dalek-ng).
@@ -17,7 +18,6 @@ Bit-exact with ``rofl_tpu_torch.spec.ristretto`` (== curve25519-dalek-ng).
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple
 
 import numpy as np
@@ -184,31 +184,24 @@ def compress_to_bytes(p: PointArray) -> np.ndarray:
 
 
 def tree_sum(p: PointArray, axis: int = 0) -> PointArray:
-    """Sum a batch of points along a batch axis, which is kept with size 1.
-
-    Log-depth halving: pad the axis to a power of two with the identity,
-    then add the upper half onto the lower until one lane is left: log2(N)
-    launches of ``point_add`` (the pairing of the JAX package's reduction).
-    """
-    ax = axis + 1  # skip limb dim
-    coords = [c.movedim(ax, 1) for c in p]
-    n = coords[0].shape[1]
-    m = 1 if n == 0 else 1 << (n - 1).bit_length()
-    if m != n:
-        ident = identity((m - n,) + tuple(coords[0].shape[2:]), p.device)
-        coords = [torch.cat([a, b], dim=1) for a, b in zip(coords, ident)]
-    acc = PointArray(*coords)
-    for _ in range(int(math.log2(m))):
-        w = acc.x.shape[1] // 2
-        acc = add(PointArray(*[c[:, :w] for c in acc]),
-                  PointArray(*[c[:, w:] for c in acc]))
-    return PointArray(*[c.movedim(1, ax) for c in acc])
+    """Sum a batch of points along a batch axis, which is kept with size 1:
+    one ``kernels.point_sum`` over the axis's (outer, R, inner) layout
+    (``kernels.reduction_layout``), with no copy of a contiguous operand.
+    The identity for an empty axis."""
+    shape = tuple(p.x.shape)
+    outer, r, inner = kernels.reduction_layout(shape[1:], axis)
+    n = outer * r * inner
+    out = kernels.point_sum(tuple(c.reshape(fe.NLIMB, n).contiguous() for c in p), outer, r, inner)
+    kept = shape[:axis + 1] + (1,) + shape[axis + 2:]
+    return PointArray(*[c.reshape(kept) for c in out])
 
 
 def tree_sum_groups(p: PointArray, group: int) -> PointArray:
     """Per-group point sums over contiguous groups of `group` lanes, any
-    group size: (16, G·group) → (16, G). A halving chain over the group axis
-    (identity padding to a power of two): ceil(log2(group)) launches of
-    ``point_add``."""
-    coords = tuple(c.reshape(fe.NLIMB, -1).contiguous() for c in p)
-    return PointArray(*kernels.halving_sums(coords, group, kernels.point_add))
+    group size: (16, G·group) → (16, G), ``tree_sum`` over the group axis
+    of (16, G, group)."""
+    n = p.x.numel() // fe.NLIMB
+    if group < 1 or n % group:
+        raise ValueError(f"tree_sum_groups: group {group} does not divide {n} lanes")
+    out = tree_sum(PointArray(*[c.reshape(fe.NLIMB, n // group, group) for c in p]), axis=1)
+    return PointArray(*[c.reshape(fe.NLIMB, n // group) for c in out])

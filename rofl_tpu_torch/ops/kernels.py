@@ -2,7 +2,7 @@
 build, their wrappers, and the plain torch version of each.
 
 Counterpart of ``rofl_tpu/ops/kernels.py``: every one of its TPU kernels
-has a counterpart here, thirteen wrappers on twelve CUDA sources
+has a counterpart here, fifteen wrappers on fourteen CUDA sources
 (``msm_flat`` launches the ``msm_groups`` kernel with one group, counted
 apart):
 
@@ -21,6 +21,10 @@ apart):
                 shared_scalar_mul)
   scalar_mul_window  csrc/scalar_mul_window.cu  (TPU: _make_smul_window_kernel,
                 scalar_mul under ROFL_SMUL_W > 1)
+  point_sum     csrc/point_sum.cu     (TPU: tree_sum, tree_sum_groups: halving
+                chains of point_add)
+  sc_sum        csrc/sc_sum.cu        (TPU: sc_sum, sc_sum_groups: halving chains
+                of sc_add)
 
 No default path of either package calls the last two: the JAX package calls
 ``shared_scalar_mul`` nowhere, and runs its windowed ladder only where the
@@ -29,11 +33,12 @@ counterpart of the default W = 1 body (on the card a signed radix-16
 ladder, csrc/scalar_mul.cu), and have no switch for the window.
 
 Each is CUDA C++ for sm_90a, one lane per thread (the MSM: a Pippenger
-over a block's terms a thread, see ``csrc/msm.cu``), sharing the device
+over a block's terms a thread, see ``csrc/msm.cu``; the sums: up to a block
+a sum, see ``csrc/point_sum.cu``), sharing the device
 headers ``csrc/fe25519_32.cuh`` (field and point arithmetic on 8 limbs of
 32 bits, under every curve kernel), ``csrc/sc25519.cuh`` (the scalar
 kernels) and ``csrc/rofl_hd.cuh`` (the qualifiers that let both compile as
-plain C++ too). The sources have
+plain C++ too, and the sums' layout). The sources have
 a plain C interface and are compiled by ``nvcc`` at first use, one process per
 source, all started together, into ``build/rofl_tpu_torch/`` beside the
 package, and loaded with ``ctypes``. A build or launch failure raises.
@@ -50,7 +55,9 @@ padding is carried: a kernel takes any N >= 1 and guards its tail threads.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -84,6 +91,8 @@ KERNEL_SOURCES = {
     "msm_groups": "msm.cu",
     "shared_scalar_mul": "shared_scalar_mul.cu",
     "scalar_mul_window": "scalar_mul_window.cu",
+    "point_sum": "point_sum.cu",
+    "sc_sum": "sc_sum.cu",
 }
 _HEADERS = ("fe25519_32.cuh", "sc25519.cuh", "rofl_hd.cuh")
 
@@ -112,6 +121,8 @@ _ARGTYPES = {
     "msm_groups": [_P, _I] + [_P] * 4 + [_I] * 3 + [_P] * 6 + [_P],
     "shared_scalar_mul": [_P, _I] + [_P] * 8 + [_I, _P],
     "scalar_mul_window": [_I, _P, _I] + [_P] * 8 + [_I, _P],
+    "point_sum": [_P] * 4 + [_I] * 6 + [_P] * 8 + [_P],
+    "sc_sum": [_P] + [_I] * 6 + [_P] * 2 + [_P],
 }
 # The C function of a wrapper, where it is not rofl_<wrapper>: msm_flat is
 # msm_groups with one group.
@@ -583,26 +594,6 @@ def msm_blocks_per_wave(device: torch.device) -> int:
     return _msm_waves[key]
 
 
-def halving_sums(p, group: int, add):
-    """Per-group sums over contiguous groups of `group` lanes, (16, G·group)
-    → (16, G): the groups padded to a power of two with the identity, then
-    the upper half added onto the lower by `add` until one lane is left."""
-    n_groups = p[0].shape[1] // group
-    width = 1 << (group - 1).bit_length()
-    coords = [c.reshape(NLIMB, n_groups, group) for c in p]
-    if width != group:
-        pad, device = (n_groups, width - group), coords[0].device
-        ident = (fe.zeros(pad, device), fe.ones(pad, device), fe.ones(pad, device),
-                 fe.zeros(pad, device))
-        coords = [torch.cat([c, i], dim=2) for c, i in zip(coords, ident)]
-    while width > 1:
-        width //= 2
-        lo = tuple(c[:, :, :width].reshape(NLIMB, -1).contiguous() for c in coords)
-        hi = tuple(c[:, :, width:].reshape(NLIMB, -1).contiguous() for c in coords)
-        coords = [c.reshape(NLIMB, n_groups, width) for c in add(lo, hi)]
-    return tuple(c.reshape(NLIMB, n_groups).contiguous() for c in coords)
-
-
 MSM_REF_SLICE = 1 << 18
 
 
@@ -615,7 +606,7 @@ def msm_groups_ref(k, p, group: int):
                             tuple(c[:, lo:lo + MSM_REF_SLICE] for c in p))
              for lo in range(0, n, MSM_REF_SLICE)]
     terms = tuple(torch.cat(cs, dim=1) for cs in zip(*parts))
-    return halving_sums(terms, group, point_add_ref)
+    return point_sum_ref(terms, n // group, group, 1)
 
 
 def msm_flat_ref(k, p):
@@ -792,3 +783,175 @@ def scalar_mul_window(k, p, window: int):
     _launch("scalar_mul_window", device, n, window, k.data_ptr(), k.shape[1],
             *[c.data_ptr() for c in p], *[c.data_ptr() for c in out], n)
     return tuple(out)
+
+
+# =============================================================================
+# point_sum, sc_sum
+# =============================================================================
+
+SUM_THREADS = 128  # csrc/point_sum.cu and csrc/sc_sum.cu THREADS
+# Blocks an SM holds at least (point_sum.cu's __launch_bounds__,
+# ROFL_SUM_MIN_BLOCKS): a wave of the sums is the card's SMs times this.
+SUM_BLOCKS_PER_SM = 2
+# Lanes of one warp: with inner at least this, one thread a lane keeps a
+# warp's loads on neighbouring addresses.
+SUM_WARP = 32
+# A second launch, in terms of one thread's loop: about one addition.
+SUM_LAUNCH_TERMS = 1
+SUM_MAX_SLICES = 65535  # gridDim.y
+
+
+def reduction_layout(batch_shape, axis: int) -> tuple:
+    """(outer, R, inner) of a sum over batch axis `axis` of a (16,
+    *batch_shape) tensor: the product of the sizes before the axis, its size
+    and the product of the sizes after it. In the tensor's row-major lanes,
+    lane (o·R + r)·inner + i is term r of output lane o·inner + i, so a
+    contiguous tensor is summed where it lies."""
+    batch_shape = tuple(batch_shape)
+    if not 0 <= axis < len(batch_shape):
+        raise ValueError(f"axis {axis} is not an axis of the batch shape {batch_shape}")
+    return (math.prod(batch_shape[:axis]), batch_shape[axis], math.prod(batch_shape[axis + 1:]))
+
+
+def _threads_a_lane(inner: int) -> tuple:
+    if inner >= SUM_WARP:
+        return (1,)
+    return tuple(1 << k for k in range(SUM_THREADS.bit_length()))
+
+
+def _sum_cost(lanes: int, terms: int, tpl: int, slices: int, blocks_per_wave: int) -> int:
+    """One launch's time in terms of one thread's additions: its waves times
+    a thread's terms plus the log2(tpl) levels of its fold."""
+    blocks = -(-lanes * tpl // SUM_THREADS) * slices
+    run = -(-terms // slices)
+    return -(-blocks // blocks_per_wave) * (-(-run // tpl) + tpl.bit_length() - 1)
+
+
+@functools.lru_cache(maxsize=512)
+def sum_plan(outer: int, R: int, inner: int, blocks_per_wave: int) -> tuple:
+    """(tpl, slices, tpl2) of a sum over the layout (outer, R, inner) on a
+    card that runs `blocks_per_wave` blocks at once: the threads a lane and
+    the slices a lane of the first launch, and the threads a lane of the
+    second, which adds the slices' partials over (1, slices, outer·inner).
+    Each in powers of two, tpl = 1 where inner >= SUM_WARP; the plan that
+    makes the cost of both launches least (``_sum_cost``, and
+    SUM_LAUNCH_TERMS for the second), the fewest threads and slices among
+    equals."""
+    lanes = outer * inner
+
+    def second(slices):
+        if slices == 1:
+            return 0, 1
+        return min((SUM_LAUNCH_TERMS + _sum_cost(lanes, slices, t, 1, blocks_per_wave), t)
+                   for t in _threads_a_lane(lanes))
+
+    plans = []
+    for tpl in _threads_a_lane(inner):
+        slices = 1
+        while slices == 1 or (slices <= -(-R // tpl) and slices <= SUM_MAX_SLICES):
+            cost2, tpl2 = second(slices)
+            plans.append((_sum_cost(lanes, R, tpl, slices, blocks_per_wave) + cost2,
+                          tpl, slices, tpl2))
+            slices *= 2
+    return min(plans)[1:]
+
+
+def sum_blocks_per_wave(device: torch.device) -> int:
+    """The sum blocks the card runs at once, for ``sum_plan``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count * SUM_BLOCKS_PER_SM
+
+
+def halving_sums(coords, outer: int, R: int, inner: int, add, pad) -> tuple:
+    """The sums over the R axis of (16, outer·R·inner) arrays in the layout
+    of ``reduction_layout`` → (16, outer·inner): the axis padded to a power
+    of two with `pad` (for each array, ``fe.zeros`` or ``fe.ones``), then
+    its upper half added onto its lower half by `add` (tuples of contiguous
+    (16, n) arrays in, a tuple out) until one term is left. The plain
+    versions run it on the plain adds; ``chip_smoke.py`` runs it on the
+    ``point_add`` and ``sc_add`` kernels as the chains that the sum kernels
+    replace."""
+    width = 1 if R == 0 else 1 << (R - 1).bit_length()
+    parts = [c.reshape(NLIMB, outer, R, inner) for c in coords]
+    if width != R:
+        parts = [torch.cat([c, make((outer, width - R, inner), c.device)], dim=2)
+                 for c, make in zip(parts, pad)]
+    while width > 1:
+        width //= 2
+        lo = tuple(c[:, :, :width].reshape(NLIMB, -1).contiguous() for c in parts)
+        hi = tuple(c[:, :, width:].reshape(NLIMB, -1).contiguous() for c in parts)
+        parts = [c.reshape(NLIMB, outer, width, inner) for c in add(lo, hi)]
+    return tuple(c.reshape(NLIMB, outer * inner).contiguous() for c in parts)
+
+
+IDENTITY_PAD = (fe.zeros, fe.ones, fe.ones, fe.zeros)
+
+
+def point_sum_ref(p, outer: int, R: int, inner: int) -> tuple:
+    """The point sums by halving chains of ``point_add_ref``, identity
+    padding (the pairing of the JAX package's tree_sum)."""
+    return halving_sums(p, outer, R, inner, point_add_ref, IDENTITY_PAD)
+
+
+def sc_sum_ref(a, outer: int, R: int, inner: int):
+    """The scalar sums by halving chains of ``sc_add_ref``, zero padding."""
+    return halving_sums((a,), outer, R, inner, lambda x, y: (sc_add_ref(x[0], y[0]),),
+                        (fe.zeros,))[0]
+
+
+def _check_layout(what: str, outer: int, R: int, inner: int) -> None:
+    if min(outer, inner) < 1 or R < 0:
+        raise ValueError(f"{what}: expected outer >= 1, R >= 0 and inner >= 1, got "
+                         f"({outer}, {R}, {inner})")
+
+
+def _sum(name: str, coords, outer: int, R: int, inner: int) -> tuple:
+    """Launch a sum kernel on (16, outer·R·inner) arrays on the card: one
+    launch counted (two on the stream where the plan has slices), none for
+    R = 1, whose sums are the operands."""
+    device = coords[0].device
+    n = outer * R * inner
+    _check_coords(name, coords, device, (n,))
+    if R == 1:
+        return tuple(coords)
+    lanes = outer * inner
+    tpl, slices, tpl2 = sum_plan(outer, R, inner, sum_blocks_per_wave(device))
+    scratch = (_empty_coords(len(coords), slices * lanes, device) if slices > 1
+               else [None] * len(coords))
+    out = _empty_coords(len(coords), lanes, device)
+    _launch(name, device, n, *[c.data_ptr() for c in coords], outer, R, inner, tpl, slices, tpl2,
+            *[None if c is None else c.data_ptr() for c in scratch],
+            *[c.data_ptr() for c in out])
+    return tuple(out)
+
+
+def point_sum(p, outer: int, R: int, inner: int) -> tuple:
+    """The sums over R of an (x, y, z, t) tuple of (16, outer·R·inner) int32
+    limbs in the layout of ``reduction_layout`` → a tuple of (16,
+    outer·inner): the identity for R = 0, the operand for R = 1. Equal to
+    the plain version as group elements, not as coordinates: the kernel
+    adds in another order (compare encodings or with ``curve.eq``)."""
+    _check_layout("point_sum", outer, R, inner)
+    if R == 0:
+        return _identity_coords(outer * inner, p[0].device)
+    if not use_kernels(p[0]):
+        return point_sum_ref(p, outer, R, inner)
+    return _sum("point_sum", tuple(p), outer, R, inner)
+
+
+def sc_sum(a, outer: int, R: int, inner: int):
+    """The sums mod l over R of (16, outer·R·inner) int32 scalar limbs in the
+    layout of ``reduction_layout`` → canonical (16, outer·inner): zero for
+    R = 0, the operand for R = 1. The kernel's sum is exact for any 256-bit
+    terms; the plain version's chain of ``sc_add`` takes canonical terms,
+    and on those the two are bit-equal. Every caller passes canonical
+    scalars: products and sums of ``sc_mul`` / ``sc_add`` / ``sc_sub`` (the
+    range provers' t-polynomials, A-blinding sums and IPA cross terms, the
+    range and Σ verifiers' weights, the inner products), the outputs of
+    ``sc_reduce_wide`` (blindings), and the wire's canonical scalars
+    (``bindings.add_scalars``, the L2 prover's blindings)."""
+    _check_layout("sc_sum", outer, R, inner)
+    if R == 0:
+        return fe.zeros((outer * inner,), a.device)
+    if not use_kernels(a):
+        return sc_sum_ref(a, outer, R, inner)
+    return _sum("sc_sum", (a,), outer, R, inner)[0]

@@ -4,17 +4,15 @@ l = 2^252 + 27742317777372353535851937790883648493. Counterpart of
 ``rofl_tpu.ops.sc``. ``add``, ``sub``, ``mul`` and ``reduce_wide_bytes`` go
 through the wrappers in ``ops/kernels.py``: a CUDA kernel for tensors on the
 card, the plain version (built on the limb helpers here) for tensors on the
-CPU. Everything else (``neg``, ``inv``, the sums, the inner products,
-``powers``) is built on those, so it runs in the kernels on the card too.
-The sums are chains of log-many ``sc_add`` launches over zero-padded halves,
-so any length and any group size works on both devices. Canonical (< l)
+CPU. The sums and the inner products go through ``kernels.sc_sum`` (on the
+card one exact column-sum kernel, any length and group size); ``neg``,
+``inv`` and ``powers`` are built on the arithmetic, so everything runs in
+the kernels on the card. Canonical (< l)
 values at API boundaries; same (16, *batch) int32 layout as ``ops/fe.py``.
 Bit-exact with ``rofl_tpu_torch.spec.scalar``.
 """
 
 from __future__ import annotations
-
-import math
 
 import numpy as np
 import torch
@@ -224,26 +222,26 @@ def inv(a: torch.Tensor) -> torch.Tensor:
 
 
 def sum_reduce(a: torch.Tensor, axis: int = 0) -> torch.Tensor:
-    """Sum scalars along a batch axis, which is kept with size 1. Log-depth
-    halving: pad the axis with zeros to a power of two, then add the upper
-    half onto the lower until one lane is left: log2 launches of ``sc_add``."""
-    ax = axis + 1  # skip limb dim
-    acc = a.movedim(ax, 1)
-    n = acc.shape[1]
-    m = 1 if n == 0 else 1 << (n - 1).bit_length()
-    if m != n:
-        acc = torch.cat([acc, zeros((m - n,) + tuple(acc.shape[2:]), a.device)], dim=1)
-    for _ in range(int(math.log2(m))):
-        w = acc.shape[1] // 2
-        acc = add(acc[:, :w], acc[:, w:])
-    return acc.movedim(1, ax)
+    """Sum scalars mod l along a batch axis, which is kept with size 1: one
+    ``kernels.sc_sum`` over the axis's (outer, R, inner) layout
+    (``kernels.reduction_layout``), with no copy of a contiguous operand.
+    Zero for an empty axis."""
+    from . import kernels
+
+    shape = tuple(a.shape)
+    outer, r, inner = kernels.reduction_layout(shape[1:], axis)
+    out = kernels.sc_sum(a.reshape(NLIMB, outer * r * inner).contiguous(), outer, r, inner)
+    return out.reshape(shape[:axis + 1] + (1,) + shape[axis + 2:])
 
 
 def sum_reduce_groups(a: torch.Tensor, group: int) -> torch.Tensor:
     """Per-group mod-l sums over contiguous groups of any size:
-    (16, G·group) → (16, G)."""
-    g = a.shape[-1] // group
-    return sum_reduce(a.reshape(NLIMB, g, group), axis=1).reshape(NLIMB, g)
+    (16, G·group) → (16, G), ``sum_reduce`` over the group axis of
+    (16, G, group)."""
+    n = a.numel() // NLIMB
+    if group < 1 or n % group:
+        raise ValueError(f"sum_reduce_groups: group {group} does not divide {n} lanes")
+    return sum_reduce(a.reshape(NLIMB, n // group, group), axis=1).reshape(NLIMB, n // group)
 
 
 def inner_product_groups(a: torch.Tensor, b: torch.Tensor, group: int) -> torch.Tensor:

@@ -1,19 +1,23 @@
-"""Time the two compile-time choices of the rebuilt kernels on the card: the
-MSM's window c (csrc/msm.cu, ROFL_MSM_C; the package builds c = 3) and the
+"""Time the compile-time choices of the rebuilt kernels on the card: the
+MSM's window c (csrc/msm.cu, ROFL_MSM_C; the package builds c = 3), the
 ladder's threads a block (csrc/scalar_mul.cu, ROFL_LADDER_THREADS; the
-package builds 64).
+package builds 64) and the blocks an SM the point sums ask for
+(csrc/point_sum.cu, ROFL_SUM_MIN_BLOCKS, which caps their registers).
 
     python -m rofl_tpu_torch.tune_kernels
 
-needs one CUDA card and nvcc. It builds msm.cu at c = 3, 4 and 5 and
-scalar_mul.cu at 32, 64 and 128 threads, all at once, into
-build/rofl_tpu_torch/ beside the package's own libraries; runs each variant
-through its C entry point on the same random inputs (msm_groups: 16 groups
-of 65 536 terms; scalar_mul: 50 000 lanes), holds its result equal to the
-package's wrapper as canonical encodings, and prints one JSON line per
-variant: ptxas' registers and spill bytes for each entry point, the slices
-a group (the MSM), and the median device time of one call in ms. A variant
-that disagrees ends the run with a non-zero exit code.
+needs one CUDA card and nvcc. It builds msm.cu at c = 3, 4 and 5,
+scalar_mul.cu at 32, 64 and 128 threads and point_sum.cu at 1, 2 and 4
+blocks an SM, all at once, into build/rofl_tpu_torch/ beside the package's
+own libraries; runs each variant through its C entry point on the same
+random inputs (msm_groups: 16 groups of 65 536 terms; scalar_mul: 50 000
+lanes; point_sum: the paths' layouts SUM_LAYOUTS, each planned by
+kernels.sum_plan for a wave of the card's SMs times the variant's blocks),
+holds its result equal to the package's wrapper as canonical encodings, and
+prints one JSON line per variant: ptxas' registers and spill bytes for each
+entry point, the slices a group (the MSM) or the plans (the sums), and the
+median device time of one call in ms. A variant that disagrees ends the run
+with a non-zero exit code.
 """
 
 from __future__ import annotations
@@ -32,15 +36,20 @@ from .ops import curve, fe, kernels
 
 MSM_WINDOWS = (3, 4, 5)
 LADDER_THREADS = (32, 64, 128)
+SUM_MIN_BLOCKS = (1, 2, 4)
 MSM_SHAPE = (16, 1 << 16)  # groups, terms a group: the provers' S sum
 LADDER_LANES = 50_000
+# (outer, R, inner): tree_sum of d, the provers' A sums, the clients' sums,
+# the range verifier's chunk sums, the IPA's last groups
+SUM_LAYOUTS = ((1, 50_000, 1), (16, 32_768, 1), (1, 4, 50_000), (1, 16, 32_768), (32, 2, 1))
 
 
 def build_variants() -> dict:
     """(source, define) -> (library path, ptxas records), built in parallel."""
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     wanted = [("msm.cu", f"ROFL_MSM_C={c}") for c in MSM_WINDOWS] + [
-        ("scalar_mul.cu", f"ROFL_LADDER_THREADS={t}") for t in LADDER_THREADS]
+        ("scalar_mul.cu", f"ROFL_LADDER_THREADS={t}") for t in LADDER_THREADS] + [
+        ("point_sum.cu", f"ROFL_SUM_MIN_BLOCKS={b}") for b in SUM_MIN_BLOCKS]
     running = {}
     for src, define in wanted:
         base = kernels._library_path(src)
@@ -137,6 +146,19 @@ def ladder_variant(lib_path, k, p):
     return tuple(out)
 
 
+def point_sum_variant(lib_path, p, layout: tuple, plan: tuple):
+    """One call of a built point_sum.cu variant with the plan given."""
+    outer, r, inner = layout
+    tpl, slices, tpl2 = plan
+    device, m = p[0].device, outer * inner
+    scratch = [torch.empty((16, slices * m), dtype=fe.DTYPE, device=device) for _ in range(4)]
+    out = [torch.empty((16, m), dtype=fe.DTYPE, device=device) for _ in range(4)]
+    call(lib_path, "rofl_point_sum", kernels._ARGTYPES["point_sum"], *[t.data_ptr() for t in p],
+         outer, r, inner, tpl, slices, tpl2, *[t.data_ptr() for t in scratch],
+         *[t.data_ptr() for t in out])
+    return tuple(out)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("tune_kernels: no CUDA device")
@@ -174,6 +196,26 @@ def main() -> None:
         print(json.dumps({"kernel": "scalar_mul", "threads": t, "lanes": LADDER_LANES,
                           "match": match, "ms": device_ms(lambda: ladder_variant(lib_path, k, p)),
                           "ptxas": ptxas}), flush=True)
+    del k, p
+    torch.cuda.empty_cache()
+
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for layout in SUM_LAYOUTS:
+        _, p = random_operands(layout[0] * layout[1] * layout[2], device, rng)
+        want = kernels.compress(kernels.point_sum(p, *layout))
+        for b in SUM_MIN_BLOCKS:
+            lib_path, ptxas = built[("point_sum.cu", f"ROFL_SUM_MIN_BLOCKS={b}")]
+            plan = kernels.sum_plan(*layout, sms * b)
+            match = torch.equal(kernels.compress(point_sum_variant(lib_path, p, layout, plan)),
+                                want)
+            bad += [] if match else [f"point_sum blocks={b} at {layout}"]
+            print(json.dumps({"kernel": "point_sum", "min_blocks_per_sm": b,
+                              "layout": list(layout), "plan": list(plan), "match": match,
+                              "ms": device_ms(lambda: point_sum_variant(lib_path, p, layout, plan),
+                                              reps=10),
+                              "ptxas": ptxas}), flush=True)
+        del p
+        torch.cuda.empty_cache()
     if bad:
         sys.exit(f"variants disagree with the package's kernels: {bad}")
 

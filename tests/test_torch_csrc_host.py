@@ -543,3 +543,85 @@ def test_scalar_mul_window_on_host(lib, k_mode, window):
     assert 0 <= min(o.min() for o in out) and max(o.max() for o in out) <= 0xFFFF
     assert lib.host_scalar_mul_window(3, ptr(k_arr), k_lanes, *map(ptr, pa),
                                       *map(ptr, out), n, 4) == 1
+
+
+def exact_sum_terms(case):
+    """The terms of one exact-sum case and whether they are canonical."""
+    from rofl_tpu_torch.spec import scalar as SS
+
+    L = SS.L
+    if case == "zero_terms":
+        return [], True
+    if case == "one_term":
+        return [L - 1], True
+    if case == "l_minus_1_2^17_times":
+        return [L - 1] * (1 << 17), True
+    if case == "every_word_2^32_minus_1":  # any 256-bit term: every column carries
+        return [2**256 - 1] * 70001 + [2**256 - 2**224, 2**255], False
+    return [int.from_bytes(rng.bytes(32), "little") % L for _ in range(3000)], True
+
+
+@pytest.mark.parametrize("case", ["zero_terms", "one_term", "l_minus_1_2^17_times",
+                                  "every_word_2^32_minus_1", "random"])
+def test_exact_scalar_sum_on_host(lib, case):
+    """sc25519.cuh's exact sum (the column sums of sc_columns_add, then
+    sc_reduce_columns: what csrc/sc_sum.cu runs) against Python's
+    sum(...) % l, and on canonical terms against the plain chain of sc_add
+    (kernels.sc_sum_ref), bit-equal: no term, one term, 2^17 terms of
+    l - 1, terms with every word 2^32 - 1, random canonical terms."""
+    from rofl_tpu_torch.spec import scalar as SS
+
+    values, canonical = exact_sum_terms(case)
+    a = limbs_i32(values) if values else np.zeros((16, 0), np.int32)
+    out = np.full((16, 1), -1, np.int32)
+    lib.host_sc_sum_columns(ptr(a), len(values), ptr(out))
+    assert out.min() >= 0 and out.max() <= 0xFFFF
+    assert fe.unpack_scalars(out) == [sum(values) % SS.L]
+    if canonical:
+        np.testing.assert_array_equal(
+            out, kernels.sc_sum_ref(torch.from_numpy(a), 1, len(values), 1).numpy())
+
+
+@pytest.mark.parametrize("layout,wave", [((1, 1000, 1), 528), ((3, 77, 1), 4),
+                                         ((1, 64, 40), 528), ((32, 3, 1), 528),
+                                         ((3, 300, 1), 8)])
+def test_sum_grids_on_host(lib, layout, wave):
+    """csrc/sc_sum.cu's and csrc/point_sum.cu's grids run block by block at
+    their 128 threads, with the plan (threads a lane, slices, threads a lane
+    of the second launch) that kernels.sum_plan makes for the layout on a
+    card of `wave` blocks at once: one thread a lane and several, with and
+    without slices and the second launch, lanes that do not fill a block.
+    Scalars against Python's sum mod l and the plain chain, bit-equal;
+    points against the spec and the plain chain as encodings."""
+    from rofl_tpu_torch.spec import scalar as SS
+
+    outer, r, inner = layout
+    tpl, slices, tpl2 = kernels.sum_plan(outer, r, inner, wave)
+    n, m = outer * r * inner, outer * inner
+    terms = lambda vals: [[vals[(o * r + t) * inner + i] for t in range(r)]  # noqa: E731
+                          for o in range(outer) for i in range(inner)]
+    vals = [int.from_bytes(rng.bytes(32), "little") % SS.L for _ in range(n)]
+    a = limbs_i32(vals)
+    scratch, out = np.zeros((16, max(1, slices * m)), np.int32), np.full((16, m), -1, np.int32)
+    lib.host_sc_sum(ptr(a), outer, r, inner, tpl, slices, tpl2, kernels.SUM_THREADS,
+                    ptr(scratch), ptr(out))
+    assert fe.unpack_scalars(out) == [sum(t) % SS.L for t in terms(vals)]
+    np.testing.assert_array_equal(out, kernels.sc_sum_ref(torch.from_numpy(a), *layout).numpy())
+
+    pool = points()[0][:12] + [SR.identity()]
+    pts = [pool[k] for k in rng.integers(0, len(pool), size=n)]
+    pa = coords_i32(curve.pack_points(pts, "cpu"))
+    scratch = [np.zeros((16, max(1, slices * m)), np.int32) for _ in range(4)]
+    out = [np.full((16, m), -1, np.int32) for _ in range(4)]
+    lib.host_point_sum(*map(ptr, pa), outer, r, inner, tpl, slices, tpl2, kernels.SUM_THREADS,
+                       *map(ptr, scratch), *map(ptr, out))
+    got = [bytes(e) for e in fe.to_bytes_array(host_encodings(lib, out))]
+    want = []
+    for t in terms(pts):
+        acc = SR.identity()
+        for q in t:
+            acc = acc + q
+        want.append(acc.compress())
+    assert got == want
+    plain = kernels.point_sum_ref(tuple(torch.from_numpy(c) for c in pa), *layout)
+    assert [bytes(e) for e in curve.compress_to_bytes(curve.PointArray(*plain))] == want

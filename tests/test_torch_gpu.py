@@ -102,7 +102,8 @@ def test_kernels_equal_their_plain_versions(card, n):
     torch.cuda.synchronize()
     launches = {"point_add": 2, "point_double": 1, "compress": 1, "decompress": 1,
                 "sc_reduce_wide": 2, "sc_mul": 2, "sc_add": 2, "sc_sub": 2, "scalar_mul": 0,
-                "msm_flat": 0, "msm_groups": 0, "shared_scalar_mul": 0, "scalar_mul_window": 0}
+                "msm_flat": 0, "msm_groups": 0, "shared_scalar_mul": 0, "scalar_mul_window": 0,
+                "point_sum": 0, "sc_sum": 0}
     assert {k: kernels.LAUNCHES[k] - before[k] for k in before} == launches
     assert {k: kernels.LANES[k] - lanes_before[k] for k in lanes_before} == {
         k: v * n for k, v in launches.items()}
@@ -202,13 +203,77 @@ def test_scalar_mul_kernel_equals_its_plain_version_and_the_spec(card, n):
 def test_scalar_sums_on_the_card_take_any_length(card):
     values = [SS.L - 1, 1, 1 << 252] + list(range(12))
     limbs = fe.to_tensor(sc.pack_scalars(values), card)
-    before = kernels.LAUNCHES["sc_add"]
+    before = dict(kernels.LAUNCHES)
     assert sc.unpack_scalars(sc.sum_reduce(limbs)) == [sum(values) % SS.L]
-    assert kernels.LAUNCHES["sc_add"] - before == 4  # 15 lanes padded to 16
+    # one sc_sum launch, no chain of sc_add
+    assert kernels.LAUNCHES["sc_sum"] - before["sc_sum"] == 1
+    assert kernels.LAUNCHES["sc_add"] == before["sc_add"]
     assert sc.unpack_scalars(sc.sum_reduce_groups(limbs, 5)) == [
         sum(values[g:g + 5]) % SS.L for g in (0, 5, 10)]
     assert sc.unpack_scalars(sc.neg(limbs)) == [(-v) % SS.L for v in values]
     assert sc.unpack_scalars(sc.sum_reduce(limbs[:, :2])) == [0]
+
+
+# The sums' layouts on the paths: tree_sum of d, the provers' A sums, the
+# IPA's groups, the clients' column sums, the verifier's chunk-axis sums,
+# and a ragged length.
+SUM_LAYOUTS = [(1, 50000, 1), (16, 32768, 1), (32, 1, 1), (32, 2, 1), (32, 3, 1), (32, 77, 1),
+               (32, 16384, 1), (1, 4, 50000), (1, 16, 32768), (1, 100001, 1)]
+
+
+def sum_operands(n, device, seed):
+    """n points from ``operands`` and n canonical scalars, l - 1 and 0 among
+    them."""
+    p, _ = operands(n, device, seed)
+    wide = torch.from_numpy(
+        np.random.default_rng(seed).integers(0, 256, size=(64, n)).astype(np.int32)).to(device)
+    wide[:, 0] = 0
+    a = kernels.sc_reduce_wide(wide)
+    a[:, -1] = fe.to_tensor(sc.pack_scalars([SS.L - 1]), device)[:, 0]
+    return p, a
+
+
+@pytest.mark.parametrize("layout", SUM_LAYOUTS)
+def test_sum_kernels_equal_their_plain_versions(card, layout):
+    """point_sum and sc_sum against their plain halving chains at the paths'
+    layouts: scalars bit-equal, points as canonical encodings (the kernel
+    adds in another order); one launch each (none for R = 1) and N lanes."""
+    outer, r, inner = layout
+    n = outer * r * inner
+    p, a = sum_operands(n, card, seed=n)
+    before, lanes_before = dict(kernels.LAUNCHES), dict(kernels.LANES)
+    got_a = kernels.sc_sum(a, outer, r, inner)
+    got_p = kernels.point_sum(p, outer, r, inner)
+    torch.cuda.synchronize()
+    counted = {k: kernels.LAUNCHES[k] - before[k] for k in before if kernels.LAUNCHES[k] != before[k]}
+    assert counted == ({} if r == 1 else {"sc_sum": 1, "point_sum": 1})
+    if r > 1:
+        assert kernels.LANES["sc_sum"] - lanes_before["sc_sum"] == n
+        assert kernels.LANES["point_sum"] - lanes_before["point_sum"] == n
+    assert got_a.shape == (16, outer * inner)
+    assert torch.equal(got_a, kernels.sc_sum_ref(a, outer, r, inner))
+    want_p = kernels.point_sum_ref(p, outer, r, inner)
+    assert torch.equal(kernels.compress(got_p), kernels.compress(want_p))
+
+
+def test_sum_wrappers_refuse_what_the_kernels_do_not_take(card):
+    p, a = sum_operands(12, card, seed=12)
+    for bad in (a.to(torch.int64), a[:8].contiguous(), a[:, ::2]):
+        with pytest.raises(ValueError):
+            kernels.sc_sum(bad, 1, bad.shape[1], 1)
+    with pytest.raises(ValueError):
+        kernels.sc_sum(a, 1, 5, 1)  # 12 lanes are not 1 x 5 x 1
+    with pytest.raises(ValueError):
+        kernels.point_sum((p[0], p[1].cpu()) + p[2:], 3, 4, 1)  # coordinates on two devices
+    with pytest.raises(ValueError):
+        kernels.point_sum(tuple(c.to(torch.int64) for c in p), 3, 4, 1)
+    with pytest.raises(ValueError):
+        kernels.point_sum(p, 0, 12, 1)
+    for group in (0, 5):
+        with pytest.raises(ValueError):
+            sc.sum_reduce_groups(a, group)
+        with pytest.raises(ValueError):
+            curve.tree_sum_groups(curve.PointArray(*p), group)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):

@@ -145,18 +145,18 @@ def test_cancelling_scalar_limbs(n_vec):
 
 
 def test_cancelling_sum_runs_through_the_scalar_kernels_wrappers(monkeypatch):
-    """The n-1 vectors are summed by sc_add and negated by sc_sub (their plain
+    """The n-1 vectors are summed by sc_sum and negated by sc_sub (their plain
     versions here; their kernels on the card), not as Python integers."""
     from rofl_tpu_torch.ops import kernels as tkernels
 
-    calls = {"sc_add": 0, "sc_sub": 0}
+    calls = {"sc_add": 0, "sc_sum": 0, "sc_sub": 0}
     for name in calls:
-        def counted(a, b, name=name, wrapped=getattr(tkernels, name)):
+        def counted(*args, name=name, wrapped=getattr(tkernels, name)):
             calls[name] += 1
-            return wrapped(a, b)
+            return wrapped(*args)
         monkeypatch.setattr(tkernels, name, counted)
     got = tpedersen.cancelling_scalar_limbs(4, N, np.random.default_rng(23), "cpu")
-    assert calls == {"sc_add": 2, "sc_sub": 1}  # 3 vectors padded to 4: two halvings
+    assert calls == {"sc_add": 0, "sc_sum": 1, "sc_sub": 1}  # one sum over the 3 vectors
     assert all(g.dtype == np.uint32 and g.shape == (16, N) for g in got)
 
 
