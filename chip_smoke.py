@@ -2,8 +2,9 @@
 against its plain version, run the secure-aggregation round, the Σ-protocol
 path (prove → wire → per-lane verify), the L2-norm client round
 (encrypt → wire → verify), the server's round in the other encrypted
-modes (encrypt → wire → verify → accumulate → extract) and the FL runtime
-(a server and four clients over the TCP transport) at full width.
+modes (encrypt → wire → verify → accumulate → extract), the FL runtime
+(a server and four clients over the TCP transport) at full width, and the
+training path (a YAML experiment with trainer services on the card).
 
     python3 chip_smoke.py
 
@@ -110,10 +111,35 @@ Phases:
            bytes and DataBlocks, peak device memory. Then one round in which
            client 1 flips a byte in the middle of its upload: the server must
            end failed with the model unchanged.
+  train    the training path through the functions the CLI's commands call
+           (``cli.make_train_service``, ``cli.make_evaluator``, the
+           server's ``load_experiment``), in one event loop: (a)
+           configs/mnist_range_e2e.yml (EncRange, 16 partitions, d = 5000,
+           the z-vector models/mnist_dev_intrinsic_5k.txt) cut from 5 rounds
+           to 2, four ``TorchTrainService``s (client i trains
+           ``mnist_dev_intrinsic`` on shard i at the CLI's defaults: lr 0.1,
+           batch 32, one epoch; θ = θ0 + P·z, D = 19 090) reached by four
+           clients through ``GrpcTrainer`` over the transport, zero
+           blindings as ``cli clients``, eager verification on the CLI's 4
+           threads, an observer that evaluates with a ``Trainer``; every
+           update finite and nonzero, each extracted sum the clients'
+           fixed-point sum plus the accumulator's one unit, the final model
+           bit-equal to numpy's replay, the observer's loss finite each
+           round. Prints the round seconds, the trainer's ms a round and a
+           step apart (the generation of P, the projections, the network's
+           forward and backward, the update), the server's and clients'
+           stage ms, the observer's loss and accuracy, peak memory. (b)
+           configs/mnist_l2_compressed.yml with lazy verification and
+           ``DummyTrainService``s, 2 honest rounds; (c) the same with client
+           1's rand proof flipped in round 0: the run fails at round 1's
+           finalize, after round 0's update was applied. Then θ0 of
+           mnist_dev and one intrinsic SGD step at d = 5000 on the card
+           against the JAX package's (tests/data/torch_port_models_kat.npz).
 Launch counts and lanes launched (the sum of N over a kernel's launches) are
 set to zero just before each path (for l2: its timed run; for modes: each
 mode's three clients and the extract; for fl: the two honest rounds, not
-the tampered one) and read just after it; each path's
+the tampered one; for train: run (a), not (b), (c) or the KAT check) and
+read just after it; each path's
 line prints both. shared_scalar_mul and scalar_mul_window are on no path of either
 package's defaults (the JAX package never calls the first and runs the
 second only under ROFL_SMUL_W > 1): their launches are 0 on every path.
@@ -140,7 +166,6 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
 
 from rofl_tpu_torch import bindings  # noqa: E402
-from rofl_tpu_torch.crypto import compressed_rand_proof as CRP  # noqa: E402
 from rofl_tpu_torch.crypto import l2_range_proof as L2RP  # noqa: E402
 from rofl_tpu_torch.crypto import pedersen, sigma  # noqa: E402
 from rofl_tpu_torch.crypto import range_proof as RP  # noqa: E402
@@ -149,10 +174,17 @@ from rofl_tpu_torch.crypto import serde_vec as sv  # noqa: E402
 from rofl_tpu_torch.crypto.fp_codec import FpConfig  # noqa: E402
 from rofl_tpu_torch.fl import params as P  # noqa: E402
 from rofl_tpu_torch.fl import wire  # noqa: E402
+from rofl_tpu_torch import cli  # noqa: E402
 from rofl_tpu_torch.fl.client import FlServiceClient  # noqa: E402
+from rofl_tpu_torch.fl.config import load_experiment  # noqa: E402
 from rofl_tpu_torch.fl.observer import FLObserver  # noqa: E402
 from rofl_tpu_torch.fl.server import ServerConfig, TrainingState, make_server  # noqa: E402
+from rofl_tpu_torch.fl.trainclient import GrpcTrainer  # noqa: E402
+from rofl_tpu_torch.fl.trainservice import DummyTrainService, make_train_server  # noqa: E402
 from rofl_tpu_torch.fl.util import read_model_from_file  # noqa: E402
+from rofl_tpu_torch.models import intrinsic, networks  # noqa: E402
+from rofl_tpu_torch.models import trainer as trainer_mod  # noqa: E402
+from rofl_tpu_torch.models.trainer import Trainer  # noqa: E402
 from rofl_tpu_torch.ops import bsgs, curve, fe, fixed_base, kernels, sc  # noqa: E402
 from rofl_tpu_torch.spec import field as SF  # noqa: E402
 from rofl_tpu_torch.spec import generators as G  # noqa: E402
@@ -165,7 +197,8 @@ from rofl_tpu_torch.spec.merlin import Transcript  # noqa: E402
 sys.path.insert(1, str(Path(__file__).resolve().parent / "tests"))
 from torch_port_edges import (  # noqa: E402
     DECOMPRESS_EDGE_CASES, decompress_edges, spec_decompress)
-from torch_port_fl import flip_middle_byte  # noqa: E402
+from torch_port_fl import flip_middle_byte, flip_rand_proof, flipped_rand_proof  # noqa: E402
+from torch.func import functional_call  # noqa: E402
 
 DEVICE = "cuda"
 D = 50000
@@ -1613,16 +1646,7 @@ def flipped(enc):
     """The update with one bit of its rand proof flipped: the lowest bit of
     one lane's z_m (EncRange), of the compressed proof's z_m (the compressed
     modes)."""
-    if isinstance(enc, P.EncParamsRange):
-        z_m = enc.rand_proofs.z_m.clone()
-        z_m[0, TAMPERED_LANE] ^= 1
-        proofs = sigma.RandProofVec(enc.rand_proofs.c_prime, z_m, enc.rand_proofs.z_r)
-        return P.EncParamsRange(enc.enc_values, proofs, enc.range_proofs, enc.prove_range,
-                                enc.check_percentage, enc.fp)
-    proof = enc.rand_proof
-    bad = CRP.CompressedRandProof(proof.c_prime_L, proof.c_prime_R, proof.z_m ^ 1, proof.z_r)
-    fields = dict(enc.__dict__, rand_proof=bad)
-    return type(enc)(**fields)
+    return flipped_rand_proof(enc, TAMPERED_LANE)
 
 
 def phase_modes(l2_metric: float) -> dict:
@@ -1878,6 +1902,302 @@ def phase_fl() -> dict:
     return counts
 
 
+# -- phase 9: the training path: a YAML experiment, trainer services, GrpcTrainer ----
+
+TRAIN_CONFIG = "configs/mnist_range_e2e.yml"
+LAZY_CONFIG = "configs/mnist_l2_compressed.yml"
+TRAIN_ROUNDS = 2  # both files say 5
+TRAIN_CLIENTS = 4
+TRAIN_SEED = 61
+TRAIN_KERNELS = MODES_KERNELS + ("scalar_mul",)
+TRAIN_TIMEOUT_S = 600.0
+MODELS_KAT = "tests/data/torch_port_models_kat.npz"
+KAT_THETA0_ULPS = 8  # the normals' erf⁻¹ is XLA's polynomial, within a few ulps
+KAT_STEP_REL = 1e-4  # of the step's largest component: products summed in another order
+KAT_LOSS_RTOL = 1e-5
+
+
+class RecordingTrainer:
+    """A client's trainer (``GrpcTrainer``) that keeps each round's update."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.updates: dict[int, np.ndarray] = {}
+
+    async def train_for_round(self, config, model, round_id):
+        self.updates[round_id] = await self.inner.train_for_round(config, model, round_id)
+        return self.updates[round_id]
+
+
+def cli_args(*argv):
+    """The arguments the CLI would parse for `argv`, on the card."""
+    return cli.parser().parse_args([*argv, "--device", DEVICE])
+
+
+async def train_run(cfg: ServerConfig, services, evaluator, tamper_round=None):
+    """One experiment in this event loop, as the CLI's commands run it in
+    their processes: the server of `cfg`, one trainer service a client
+    (``make_train_server``), ``TRAIN_CLIENTS`` clients whose trainers are
+    ``GrpcTrainer``s (zero blindings, as ``cli clients``), and an observer
+    with `evaluator`. With `tamper_round`, client 1's rand proof is flipped
+    in that round. Returns (state, clients, trainers, observer, broadcast
+    times)."""
+    # as cli.cmd_clients: the encrypts take turns on a one-thread executor;
+    # the trainer services' training runs on the same default executor
+    asyncio.get_running_loop().set_default_executor(ThreadPoolExecutor(1))
+    state = TrainingState(cfg)
+    marks: list[float] = []
+    for name in ("broadcast_global_model", "broadcast_done"):
+        def timed(broadcast=getattr(state, name)):
+            marks.append(time.perf_counter())
+            return broadcast()
+        setattr(state, name, timed)
+    server = make_server({cfg.model_id: state}, "127.0.0.1:0")
+    await server.start()
+    address = f"127.0.0.1:{server.port}"
+    trainer_servers = [make_train_server(svc, "127.0.0.1:0") for svc in services]
+    for ts in trainer_servers:
+        await ts.start()
+    observer = FLObserver(address, cfg.model_id, evaluator)
+    tasks = [asyncio.create_task(observer.observe())]
+    try:
+        while not state.observer_queues:
+            await asyncio.sleep(0.01)
+        trainers = [RecordingTrainer(GrpcTrainer(f"127.0.0.1:{ts.port}"))
+                    for ts in trainer_servers]
+        clients = [FlServiceClient(address, cfg.model_id, i, trainers[i], device=DEVICE)
+                   for i in range(TRAIN_CLIENTS)]
+        for i, c in enumerate(clients):
+            c.rng = np.random.default_rng(TRAIN_SEED + i)
+        if tamper_round is not None:
+            flip_rand_proof(clients[1], tamper_round)
+        tasks += [asyncio.create_task(c.train_model()) for c in clients]
+        await asyncio.wait_for(state.done_event.wait(), TRAIN_TIMEOUT_S)
+        if state.status == "done":
+            await asyncio.wait_for(asyncio.gather(*tasks), TRAIN_TIMEOUT_S)
+        torch.cuda.synchronize()
+    finally:
+        for t in tasks:
+            t.cancel()
+        await asyncio.gather(*tasks, return_exceptions=True)
+        for ts in trainer_servers:
+            await ts.stop(0.5)
+        await server.stop(0.5)
+        state.close()
+    return state, clients, trainers, observer, marks
+
+
+def fixed_point_units(update: np.ndarray, cfg: P.CryptoConfig) -> np.ndarray:
+    """The signed fixed-point units a client commits to: its update clipped
+    to the proven range, then round-half-even."""
+    clipped = RPV.clip_f32_to_range_vec(update, cfg.fp, cfg.value_range)
+    return np.where(clipped < 0, -1, 1) * cfg.fp.f32_to_bits(clipped).astype(np.int64)
+
+
+def replay_checks(state, trainers, cfg: ServerConfig, rounds: int, prefix: str = "") -> dict:
+    """Each extracted sum against the clients' fixed-point sum plus the
+    accumulator's one unit, and the global model against the numpy float32
+    replay of the server's rule over the first `rounds` rounds."""
+    checks, want = {}, cfg.initial_model.astype(np.float32).copy()
+    scale = cfg.crypto.fp.scale
+    for r in range(rounds):
+        units = sum(fixed_point_units(t.updates[r], cfg.crypto) for t in trainers) + 1
+        extracted = (units / scale).astype(np.float32)
+        got = next((s.extracted for s in state.rounds if s.round_id == r), None)
+        checks[f"{prefix}round_{r}_extract_exact"] = bool(
+            got is not None and np.array_equal(got, extracted))
+        want = want + extracted * (1.0 / cfg.num_clients) * cfg.learning_rate
+    checks[f"{prefix}model_bit_equal_to_numpy_replay"] = bool(
+        state.global_model.dtype == np.float32 and np.array_equal(state.global_model, want))
+    return checks
+
+
+# 32-bit operations a normal of P needs at least: threefry2x32's 20 rounds
+# (an add, a rotate as two shifts and an or, a xor: 100), its key injections
+# (15) and the xor of its two words (1); the uniform map (a shift, an or, a
+# subtract, a multiply-add, a max: 6); erf⁻¹ (a log1p counted as 20, 8
+# multiply-adds as 16, 4 more); the two scalings (2). About 165.
+P_OPS_A_NORMAL = 165
+
+
+def p_generation_bound(d: int, D: int) -> dict:
+    """The least time the card could make P in (rows below D, d columns):
+    the larger of its float32 bytes written once over the memory rate and
+    its operations over the 32-bit integer peak."""
+    n = d * D
+    bytes_ms = 1e3 * 4 * n / HBM_BYTES_PER_S
+    ops_ms = 1e3 * P_OPS_A_NORMAL * n / INT32_OPS_PER_S
+    return {"normals": n, "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms), "bound_by": "operations" if ops_ms > bytes_ms
+            else "bytes"}
+
+
+def trainer_breakdown(trainer, batch) -> dict:
+    """One client's step apart, on the card: the generation of P (twice a
+    step: forward and transpose), the two projections with it, the network's
+    forward and backward at θ, the SGD update; ms, median of 3."""
+    d, D, seed = trainer.intrinsic.d, trainer.intrinsic.D, trainer.intrinsic.seed
+    xb, yb = batch
+    z = torch.as_tensor(trainer.weights, device=DEVICE)
+    theta = trainer.intrinsic.theta(z).detach()
+
+    def gen():
+        for _ in intrinsic.projection_tiles(d, D, seed, DEVICE):
+            pass
+
+    def net():
+        th = theta.clone().requires_grad_(True)
+        with trainer_mod.float32_products(DEVICE):
+            loss = trainer_mod.cross_entropy(functional_call(
+                trainer.module, networks.unflatten(trainer.module, th), (xb,)), yb)
+            torch.autograd.grad(loss, th)
+
+    g = torch.randn(D, device=DEVICE)
+    calls = {"p_generation": gen,
+             "project": lambda: intrinsic.project_forward(z, D, seed),
+             "project_transpose": lambda: intrinsic.project_transpose(g, d, seed),
+             "network_forward_backward": net,
+             "step": lambda: trainer.step(z, xb, yb),
+             "sgd_update": lambda: z - trainer.lr * z}
+    return {name: 1e3 * statistics.median(synced(fn)[1] for _ in range(3))
+            for name, fn in calls.items()}
+
+
+def check_models_kat() -> dict:
+    """θ0 of mnist_dev and one intrinsic SGD step at d = 5000, on the card,
+    against the JAX package's values in the models KAT."""
+    kat = np.load(MODELS_KAT)
+    seed, rnd, batch = int(kat["meta/seed"]), int(kat["meta/round"]), int(kat["meta/batch"])
+    t = Trainer("mnist_dev_intrinsic", "mnist", client_id=int(kat["meta/client_id"]),
+                num_clients=int(kat["meta/clients"]), batch_size=batch, seed=seed,
+                intrinsic_dim=5000, device=DEVICE)
+    theta0 = t.intrinsic.theta0.cpu().numpy()
+    want = kat["theta0/mnist_dev"]
+    ulps = float(np.max(np.abs(theta0 - want) / np.spacing(np.abs(want))))
+    w0, w1_want = kat["mnist_dev_intrinsic_5000/w0"], kat["mnist_dev_intrinsic_5000/w1"]
+    order = np.random.default_rng(rnd).permutation(len(t.x))[:batch]
+    _, loss = t.step(torch.as_tensor(w0, device=DEVICE), t._x[torch.as_tensor(order, device=DEVICE)],
+                     t._y[torch.as_tensor(order, device=DEVICE)])
+    t.set_weights(w0)
+    w1 = t.train(rnd)
+    step_err = float(np.max(np.abs(w1 - w1_want)) / np.max(np.abs(w1_want - w0)))
+    loss_want = float(kat["mnist_dev_intrinsic_5000/loss0"])
+    return {"theta0_max_ulps": ulps, "theta0_ulps_limit": KAT_THETA0_ULPS,
+            "step_max_err_over_step": step_err, "step_limit": KAT_STEP_REL,
+            "loss": float(loss), "loss_jax": loss_want,
+            "kat_theta0_within_limit": ulps <= KAT_THETA0_ULPS,
+            "kat_step_within_limit": step_err <= KAT_STEP_REL,
+            "kat_loss_within_limit": abs(float(loss) - loss_want) <= KAT_LOSS_RTOL * abs(loss_want)}
+
+
+def phase_train() -> dict:
+    """(a) configs/mnist_range_e2e.yml for 2 rounds with four trainer
+    services on the card; (b) configs/mnist_l2_compressed.yml, lazy, with
+    dummy trainer services, 2 honest rounds; (c) the same with client 1's
+    rand proof flipped in round 0, which must fail at round 1's finalize."""
+    exp = load_experiment(TRAIN_CONFIG, device=DEVICE)
+    cfg = exp.server
+    cfg.num_rounds = TRAIN_ROUNDS
+    cfg.verification_threads = cli_args("server", "-c", TRAIN_CONFIG).vthreads
+    cfg.write_model_file, cfg.bench_dir = False, None
+    dim = int(exp.intrinsic_dimension)
+    t0 = time.perf_counter()
+    services = [cli.make_train_service(cli_args(
+        "trainservice", "--model", exp.model_name, "--dataset", exp.dataset,
+        "--intrinsic-dim", str(dim), "--client-id", str(i), "--num-clients", str(TRAIN_CLIENTS)))
+        for i in range(TRAIN_CLIENTS)]
+    evaluator = cli.make_evaluator(cli_args("observer", "--model", exp.model_name,
+                                            "--dataset", exp.dataset,
+                                            "--intrinsic-dim", str(dim)))
+    setup_s = time.perf_counter() - t0
+    start_path()
+    t0 = time.perf_counter()
+    state, clients, trainers, observer, marks = asyncio.run(train_run(cfg, services, evaluator))
+    wall = time.perf_counter() - t0
+    counts = path_counts()
+    launches = counts["launches"]
+    peak = torch.cuda.max_memory_allocated()
+
+    checks = {"config_d5000": cfg.num_params == dim == 5000 and cfg.enc_type == P.ENC_RANGE_TYPE,
+              "status_done": state.status == "done",
+              "clients_done": [c.done_status for c in clients] == [wire.STATUS_DONE] * TRAIN_CLIENTS,
+              "updates_finite_nonzero": all(
+                  np.isfinite(u).all() and np.any(u != 0) and u.shape == (dim,)
+                  for t in trainers for u in t.updates.values()) and all(
+                  sorted(t.updates) == list(range(TRAIN_ROUNDS)) for t in trainers),
+              "observer_loss_finite_every_round": (
+                  [e[0] for e in observer.evals] == list(range(TRAIN_ROUNDS))
+                  and all(math.isfinite(e[1]) for e in observer.evals))}
+    checks.update(replay_checks(state, trainers, cfg, TRAIN_ROUNDS))
+    rounds = sorted(state.rounds, key=lambda s: s.round_id)
+    trainer_rounds = {i: svc.trainer.round_log for i, svc in enumerate(services)}
+    xb = services[0].trainer._x[:services[0].trainer.batch_size]
+    yb = services[0].trainer._y[:services[0].trainer.batch_size]
+    breakdown = trainer_breakdown(services[0].trainer, (xb, yb))
+    steps = services[0].trainer.round_log[0]["steps"]
+    result = {
+        "phase": "train", "config": TRAIN_CONFIG, "reduced": {"num_rounds": [5, TRAIN_ROUNDS]},
+        "enc_type": "EncRange", "d": dim, "D": services[0].trainer.full_dim,
+        "model": exp.model_name, "dataset": exp.dataset, "clients": TRAIN_CLIENTS,
+        "n_partition": cfg.crypto.n_partition, "value_range": cfg.crypto.value_range,
+        "trainer": {"lr": services[0].trainer.lr, "batch": services[0].trainer.batch_size,
+                    "epochs": services[0].trainer.local_epochs, "steps_a_round": steps},
+        "verification": f"eager, {cfg.verification_threads} threads", "blindings": "zero",
+        "setup_s": setup_s, "train_round_s": [b - a for a, b in zip(marks, marks[1:])],
+        "wall_s": wall,
+        "trainer_round_ms": trainer_rounds,
+        "trainer_step_ms": breakdown,
+        "p_generation_bound": p_generation_bound(dim, services[0].trainer.full_dim),
+        "trainer_round_ms_from_steps": {k: steps * v for k, v in breakdown.items()},
+        "server_ms": {r.round_id: r.time_state.deltas_ms() for r in rounds},
+        "client_stages": {c.client_id: {r: fl_client_stages(log)
+                                        for r, log in sorted(c.round_log.items())}
+                          for c in clients},
+        "observer": [{"round": r, "loss": loss, "accuracy": acc}
+                     for r, loss, acc in observer.evals],
+        "peak_device_bytes": peak, "launches": launches, "lanes": counts["lanes"]}
+
+    # (b) lazy verification, honest; (c) the same with a tampered round 0
+    lazy = load_experiment(LAZY_CONFIG, lazy_eval=True, device=DEVICE).server
+    lazy.num_rounds, lazy.write_model_file, lazy.bench_dir = TRAIN_ROUNDS, False, None
+    lazy.verification_threads = cfg.verification_threads
+    dummies = [DummyTrainService() for _ in range(TRAIN_CLIENTS)]
+    t0 = time.perf_counter()
+    honest, lazy_clients, lazy_trainers, _, lazy_marks = asyncio.run(
+        train_run(lazy, dummies, None))
+    lazy_wall = time.perf_counter() - t0
+    checks["lazy_status_done"] = honest.status == "done"
+    checks.update(replay_checks(honest, lazy_trainers, lazy, TRAIN_ROUNDS, prefix="lazy_"))
+    tampered, _, tampered_trainers, _, _ = asyncio.run(
+        train_run(lazy, dummies, None, tamper_round=0))
+    restore_counts(counts)
+    finished = sorted(s.round_id for s in tampered.rounds if s.is_done())
+    checks["tampered_lazy_failed"] = tampered.status == "failed"
+    checks["tampered_lazy_failed_at_round_1_finalize"] = finished == [0] and any(
+        s.round_id == 1 and s.extracted is not None for s in tampered.rounds)
+    checks.update(replay_checks(tampered, tampered_trainers, lazy, 1,
+                                prefix="tampered_round_0_applied_"))
+    result.update({"lazy": {"config": LAZY_CONFIG, "enc_type": "EncL2Compressed",
+                            "trainer": "DummyTrainService", "round_s":
+                            [b - a for a, b in zip(lazy_marks, lazy_marks[1:])],
+                            "wall_s": lazy_wall,
+                            "server_ms": {r.round_id: r.time_state.deltas_ms()
+                                          for r in sorted(honest.rounds,
+                                                          key=lambda s: s.round_id)},
+                            "client_stages": {c.client_id: {
+                                r: fl_client_stages(log) for r, log in sorted(c.round_log.items())}
+                                for c in lazy_clients}}})
+    result["models_kat"] = check_models_kat()
+    checks.update({k: v for k, v in result["models_kat"].items() if k.startswith("kat_")})
+    result.update(checks)
+    emit(result)
+    failed = [name for name, ok in checks.items() if not ok]
+    failed += [f"{name} was never launched" for name in TRAIN_KERNELS if launches[name] == 0]
+    if failed:
+        sys.exit(f"train failed: {failed}")
+    return counts
+
+
 def main() -> None:
     smi = phase_device()
     ptxas = phase_build()
@@ -1886,7 +2206,7 @@ def main() -> None:
     sigma_counts = phase_sigma(state)
     l2_counts, l2_metric = phase_l2()
     counts_by_path = {"round": round_counts, "sigma": sigma_counts, "l2": l2_counts,
-                      **phase_modes(l2_metric), "fl": phase_fl()}
+                      **phase_modes(l2_metric), "fl": phase_fl(), "train": phase_train()}
     print(smi, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "lanes",
             "lanes_by_path", "match", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

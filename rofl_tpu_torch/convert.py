@@ -21,6 +21,7 @@ from .crypto.range_proof import RangeProof
 from .fl.params import (PLAIN_TYPE, Accumulator, CryptoConfig, EncParamsL2,
                         EncParamsL2Compressed, EncParamsRange, EncParamsRangeCompressed)
 from .fl.server import ServerConfig
+from .models import networks
 from .ops import fe
 from .ops.curve import PointArray
 
@@ -276,3 +277,42 @@ def server_config_from_dict(d, device="cuda") -> ServerConfig:
         "model_config": dict(d["model_config"]),
         "initial_model": None if initial is None else np.array(initial, np.float32),
         "device": device})
+
+
+# -- a network's parameters ------------------------------------------------------------
+
+
+def flax_params_to_flat(params, module=None) -> np.ndarray:
+    """A Flax parameter pytree, given as nested dicts of numpy arrays (with
+    or without its top ``"params"`` key) → the flat float32 vector in
+    ``ravel_pytree``'s order (dict keys sorted at every level). With
+    `module`, every leaf's path and shape is held to the module's layout."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    leaves = []
+
+    def walk(d, path):
+        for k in sorted(d):
+            if isinstance(d[k], dict):
+                walk(d[k], path + (k,))
+            else:
+                leaves.append(("/".join(path + (k,)), np.asarray(d[k], np.float32)))
+
+    walk(params, ())
+    if module is not None:
+        want = [(path, shape) for path, _, shape in networks.layout(module)]
+        have = [(path, a.shape) for path, a in leaves]
+        if want != have:
+            raise ValueError(f"parameters {have} do not match the module's {want}")
+    return np.concatenate([a.reshape(-1) for _, a in leaves]).astype(np.float32)
+
+
+def flat_to_module(module: torch.nn.Module, flat, device="cuda") -> torch.nn.Module:
+    """Set `module`'s parameters from a flat vector in ``ravel_pytree``'s
+    order (numpy or torch), on `device`; returns the module."""
+    flat = torch.as_tensor(np.asarray(flat, np.float32)).to(device)
+    module.to(device)
+    with torch.no_grad():
+        for name, view in networks.unflatten(module, flat).items():
+            module.get_parameter(name).copy_(view)
+    return module

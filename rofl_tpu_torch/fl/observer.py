@@ -32,6 +32,7 @@ class FLObserver:
         async with transport.open_call(self.address, transport.OBSERVER_MODEL_TRAINING) as call:
             await call.send(wire.ModelSelection(model_id=self.model_id))
             call.done_writing()
+            logger.info("observing model %d at %s", self.model_id, self.address)
             storage = DataBlockStorage()
             async for resp in call.responses(wire.TrainResponse):
                 which = resp.which_oneof()

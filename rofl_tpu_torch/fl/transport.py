@@ -1,22 +1,31 @@
-"""The FL service's transport: the three calls of ``flservice.Flservice``
-over asyncio TCP streams, in place of the JAX package's ``grpc.aio``.
+"""The FL service's transport: the calls of ``flservice.Flservice`` and of
+``flservice.FLClientTrainService`` over asyncio TCP streams, in place of the
+JAX package's ``grpc.aio``.
 
 Each call is one TCP connection. Its first frame names the method by its
 gRPC path (``TRAIN_MODEL``, ``TERMINATE_MODEL_TRAINING``,
-``OBSERVER_MODEL_TRAINING``); the frames after it carry one message each.
-A frame is a varint length and the bytes: the length prefix of
-``wire.encode_length_delimited``, around the payload the JAX package puts
-inside its gRPC frames, byte for byte. So a JAX client cannot reach a port
-server: only the framing differs, but it differs. A frame above 64 MiB is
-refused on both ends, as the JAX channel's ``max_*_message_length`` refuses
-it. The client ends its request stream by closing its side for writing
-(``Call.done_writing``); the server closes the connection when the call's
-responses end (``TrainModel`` after a ``done_message``).
+``OBSERVER_MODEL_TRAINING``, ``TRAIN_FOR_ROUND``); the frames after it carry
+one message each. A frame is a varint length and the bytes: the length
+prefix of ``wire.encode_length_delimited``, around the payload the JAX
+package puts inside its gRPC frames, byte for byte. So a JAX client cannot
+reach a port server: only the framing differs, but it differs. A frame above
+64 MiB is refused on both ends (``FrameError``), as the JAX channel's
+``max_*_message_length`` refuses it. The client ends its request stream by
+closing its side for writing (``Call.done_writing``); the server closes the
+connection when the call's responses end (``TrainModel`` after a
+``done_message``).
+
+One ``Server`` serves any servicer: it dispatches a call by its path to the
+servicer's method of that name (``METHODS``), and answers only the paths
+whose method the servicer has. The FL server's servicer has the three
+``Flservice`` methods, a trainer service (``fl/trainservice.py``) has
+``TrainForRound``; each listens on its own address, as in the JAX package.
 
 Errors propagate: a connection cut inside a frame, a frame too large or a
 call that ends before its response raises at the caller. On the server a
-call that fails is logged with its traceback and its connection closed; the
-server goes on serving the other calls, as a gRPC server does.
+call that fails, or names a method the servicer lacks, is logged and its
+connection closed; the server goes on serving the other calls, as a gRPC
+server does.
 """
 
 from __future__ import annotations
@@ -33,6 +42,20 @@ MAX_FRAME = 64 << 20  # grpc.max_{send,receive}_message_length (server.py:369-37
 TRAIN_MODEL = "/flservice.Flservice/TrainModel"
 TERMINATE_MODEL_TRAINING = "/flservice.Flservice/TerminateModelTraining"
 OBSERVER_MODEL_TRAINING = "/flservice.Flservice/ObserverModelTraining"
+TRAIN_FOR_ROUND = "/flservice.FLClientTrainService/TrainForRound"
+# path → (servicer method, request message, whether the requests stream,
+# whether the responses stream)
+METHODS = {
+    TRAIN_MODEL: ("TrainModel", wire.TrainRequest, True, True),
+    OBSERVER_MODEL_TRAINING: ("ObserverModelTraining", wire.ModelSelection, False, True),
+    TERMINATE_MODEL_TRAINING: ("TerminateModelTraining", wire.ModelSelection, False, False),
+    TRAIN_FOR_ROUND: ("TrainForRound", wire.ClientModelMessage, True, True),
+}
+
+
+class FrameError(ValueError):
+    """A frame the transport refuses: above ``MAX_FRAME``, or a length that
+    does not end."""
 
 
 def parse_address(address: str) -> tuple[str, int]:
@@ -57,9 +80,9 @@ async def read_frame(reader: asyncio.StreamReader) -> bytes | None:
         if not byte[0] & 0x80:
             break
         if shift > 63:
-            raise ValueError("overlong frame length")
+            raise FrameError("overlong frame length")
     if n > MAX_FRAME:
-        raise ValueError(f"frame of {n} bytes is above the limit of {MAX_FRAME}")
+        raise FrameError(f"frame of {n} bytes is above the limit of {MAX_FRAME}")
     try:
         return await reader.readexactly(n)
     except asyncio.IncompleteReadError as e:
@@ -68,7 +91,7 @@ async def read_frame(reader: asyncio.StreamReader) -> bytes | None:
 
 async def write_frame(writer: asyncio.StreamWriter, payload: bytes) -> None:
     if len(payload) > MAX_FRAME:
-        raise ValueError(f"frame of {len(payload)} bytes is above the limit of {MAX_FRAME}")
+        raise FrameError(f"frame of {len(payload)} bytes is above the limit of {MAX_FRAME}")
     writer.write(wire.encode_varint(len(payload)))
     writer.write(payload)
     await writer.drain()
@@ -138,11 +161,12 @@ async def open_call(address: str, method: str):
 
 
 class Server:
-    """Serves the calls of ``flservice.Flservice`` on `address` (port 0: an
-    ephemeral port, which ``port`` holds after ``start``) to `servicer`, an
-    object with the async methods ``TrainModel(requests)`` and
-    ``ObserverModelTraining(request)`` (async generators of responses) and
-    ``TerminateModelTraining(request)``."""
+    """Serves the calls of `servicer` on `address` (port 0: an ephemeral
+    port, which ``port`` holds after ``start``). A call of a path in
+    ``METHODS`` goes to the servicer's method of that name: streamed
+    requests arrive as an async iterator, a unary one as the message; a
+    streaming method is an async generator of responses, a unary one returns
+    its response."""
 
     def __init__(self, servicer, address: str):
         self.servicer = servicer
@@ -175,18 +199,17 @@ class Server:
         try:
             frame = await read_frame(reader)
             method = None if frame is None else frame.decode()
-            if method == TRAIN_MODEL:
-                await self._stream(writer, self.servicer.TrainModel(
-                    read_messages(reader, wire.TrainRequest)))
-            elif method == OBSERVER_MODEL_TRAINING:
-                request = await read_message(reader, wire.ModelSelection)
-                await self._stream(writer, self.servicer.ObserverModelTraining(request))
-            elif method == TERMINATE_MODEL_TRAINING:
-                request = await read_message(reader, wire.ModelSelection)
-                response = await self.servicer.TerminateModelTraining(request)
-                await write_frame(writer, response.to_bytes())
-            else:
+            name, request_cls, stream_in, stream_out = METHODS.get(method, (None,) * 4)
+            handler = getattr(self.servicer, name, None) if name else None
+            if handler is None:
                 logger.error("unknown method %r", method)
+                return
+            request = (read_messages(reader, request_cls) if stream_in
+                       else await read_message(reader, request_cls))
+            if stream_out:
+                await self._stream(writer, handler(request))
+            else:
+                await write_frame(writer, (await handler(request)).to_bytes())
         except Exception:  # one failed call ends its connection, not the server
             logger.exception("call %s failed", method)
         finally:

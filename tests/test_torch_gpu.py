@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain torch versions, on the card; the
-launch counts under threads; and FL rounds (Plain, EncRange) at d = 64 with
-the crypto on the card, over the port's transport.
+launch counts under threads; and FL rounds (Plain, EncRange, and EncRange
+with lazy verification, honest and tampered) at d = 64 with the crypto on
+the card, over the port's transport.
 
 Needs an NVIDIA GPU and nvcc, so every test carries the ``gpu`` marker and the
 CPU command deselects them with ``-m "not gpu"``; the fixture's skip only
@@ -472,3 +473,57 @@ def test_fl_round_on_the_card(card, enc_type):
         for name in ("point_add", "compress", "decompress", "scalar_mul", "msm_flat",
                      "msm_groups", "sc_mul"):
             assert kernels.LAUNCHES[name] > before[name], name
+
+
+@pytest.mark.parametrize("tamper_round", [None, 0, 1])
+def test_lazy_verification_on_the_card(card, tamper_round):
+    """Lazy verification, EncRange at d = 64, 3 DummyTrainer clients, 3
+    rounds: honest, every round is applied and the run ends done; with
+    client 1's rand proof flipped in round r, rounds up to r are applied and
+    the run fails at round r + 1's finalize, which waits for round r's
+    verification (rofl_tpu/fl/server.py:234-240)."""
+    d, n, rounds = 64, 3, 3
+    cfg = ServerConfig(num_clients=n, num_params=d, num_rounds=rounds, enc_type=P.ENC_RANGE_TYPE,
+                       crypto=P.CryptoConfig(value_range=8, n_partition=1,
+                                             enc_type=P.ENC_RANGE_TYPE),
+                       lazy_verification=True, write_model_file=False, bench_dir=None,
+                       device=card)
+    rng = np.random.default_rng(640)
+    fns = cancelling_fns({r: pedersen.cancelling_scalar_limbs(n, d, rng, card)
+                          for r in range(rounds)})
+    state, _ = run_fl(cfg, n, blinding_fns=fns, timeout=300,
+                      tampered=() if tamper_round is None else (1,), tamper_round=tamper_round)
+    applied = rounds if tamper_round is None else tamper_round + 1
+    want = np.zeros(d, np.float32)
+    for _ in range(applied):  # 0.001 rounds to 0 units: each sum is the one unit
+        want = want + np.full(d, 1 / 128, np.float32) * (1.0 / n) * 1.0
+    np.testing.assert_array_equal(state.global_model, want)
+    finished = sorted(s.round_id for s in state.rounds if s.is_done())
+    if tamper_round is None:
+        assert state.status == "done" and finished[-1] == rounds - 1
+    else:
+        assert state.status == "failed"
+        assert finished[-1] == tamper_round
+        assert any(s.round_id == tamper_round + 1 and s.extracted is not None
+                   for s in state.rounds)
+
+
+def test_jax_random_on_the_card_is_the_cpus(card):
+    """The port's threefry bits and uniforms on the card equal the CPU's, bit
+    for bit (the CPU tests hold those to ``jax.random``), tiles included;
+    its normals and a block of P agree within 4 float32 ulps."""
+    from rofl_tpu_torch.models import intrinsic
+    from rofl_tpu_torch.models import jax_random as R
+
+    key = R.fold_in(R.PRNGKey(21), 3)
+    for shape, start in (((7,), 0), ((129, 33), 0), ((40, 5000), 1234 * 5000)):
+        assert torch.equal(R.bits(key, shape, card, start).cpu(), R.bits(key, shape, "cpu", start))
+        assert torch.equal(R.uniform(key, shape, -0.3, 2.0, card, start).cpu(),
+                           R.uniform(key, shape, -0.3, 2.0, "cpu", start))
+    got = R.normal(key, (300_000,), card).cpu().numpy()
+    want = R.normal(key, (300_000,), "cpu").numpy()
+    assert np.max(np.abs(got - want) / np.spacing(np.abs(want))) <= 4
+    (_, p_card), = list(intrinsic.projection_tiles(64, 1000, 2, card))
+    (_, p_cpu), = list(intrinsic.projection_tiles(64, 1000, 2, "cpu"))
+    assert np.max(np.abs(p_card.cpu().numpy() - p_cpu.numpy())
+                  / np.spacing(np.abs(p_cpu.numpy()))) <= 4
