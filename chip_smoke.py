@@ -3,8 +3,9 @@ against its plain version, run the secure-aggregation round, the Σ-protocol
 path (prove → wire → per-lane verify), the L2-norm client round
 (encrypt → wire → verify), the server's round in the other encrypted
 modes (encrypt → wire → verify → accumulate → extract), the FL runtime
-(a server and four clients over the TCP transport) at full width, and the
-training path (a YAML experiment with trainer services on the card).
+(a server and four clients over the TCP transport) at full width, the
+training path (a YAML experiment with trainer services on the card), the
+micro-benchmark suite, and the e2e suite with every role in its own process.
 
     python3 chip_smoke.py
 
@@ -95,7 +96,7 @@ Phases:
            make_server) and 4 ``FlServiceClient``s and an ``FLObserver`` in
            one event loop over the port's TCP transport on 127.0.0.1 (an
            ephemeral port); EncL2, 16 partitions, value range 8, L2 range 16,
-           check_percentage 1.0, FpConfig(16, 7), 2 rounds, eager
+           check_percentage 1.0, FpConfig(16, 7), 1 round (cut from 2), eager
            verification on one thread, the clients' encrypts one at a time
            (the loop's default executor has one thread: four at once in one
            interpreter thrash the GIL); the initial global model is
@@ -116,7 +117,7 @@ Phases:
            server's ``load_experiment``), in one event loop: (a)
            configs/mnist_range_e2e.yml (EncRange, 16 partitions, d = 5000,
            the z-vector models/mnist_dev_intrinsic_5k.txt) cut from 5 rounds
-           to 2, four ``TorchTrainService``s (client i trains
+           to 1 (2 before), four ``TorchTrainService``s (client i trains
            ``mnist_dev_intrinsic`` on shard i at the CLI's defaults: lr 0.1,
            batch 32, one epoch; θ = θ0 + P·z, D = 19 090) reached by four
            clients through ``GrpcTrainer`` over the transport, zero
@@ -130,15 +131,46 @@ Phases:
            forward and backward, the update), the server's and clients'
            stage ms, the observer's loss and accuracy, peak memory. (b)
            configs/mnist_l2_compressed.yml with lazy verification and
-           ``DummyTrainService``s, 2 honest rounds; (c) the same with client
+           ``DummyTrainService``s, 2 clients (cut from 4) and 2 honest
+           rounds (cut from 5; lazy verification needs the second); (c)
+           the same with client
            1's rand proof flipped in round 0: the run fails at round 1's
            finalize, after round 0's update was applied. Then θ0 of
            mnist_dev and one intrinsic SGD step at d = 5000 on the card
            against the JAX package's (tests/data/torch_port_models_kat.npz).
+  micro    ``bench_suite.main`` in this process: all 11 benches at d = 32768
+           (the reference's first dimension), one sample each after its
+           warm-up, FpConfig(16, 7), range 8, into a temporary directory;
+           every verify sample must accept (they raise otherwise), and each
+           of the 16 files must hold one integer line. l2rangeproof runs at
+           d = 128: its values' squared sum exceeds the L2 bound above
+           d = 160 (reference hazard 14), and at 32768 it must raise
+           L2NormError, as the JAX bench does. Prints each bench's
+           ms as a float beside the card's name and power limit.
+  e2e      ``run_e2e_suite.main`` with the JAX suite's default modes (Plain,
+           Range, l2Compressed) on configs/example_config.yml (mnist_dev, all
+           19 090 parameters), 4 clients, 1 trainer service and the observer,
+           cut from the suite's 3 rounds to 2, free ports, a temporary
+           --out: for each mode ``run_e2e`` starts the server, the trainer
+           service (``TorchTrainService``), the observer and one ``clients``
+           process, each ``python -m rofl_tpu_torch.cli --device cuda`` on
+           this card. Each server must exit 0 before the timeout, each
+           client's .bench hold 2 lines, the accuracy be parsed, Range and
+           l2Compressed send more bytes than Plain, and no child's process
+           group be left, on the card or off it. ``nvidia-smi`` is sampled
+           every second: at least 4 compute processes that were not there
+           before the phase, or, where the container hides their pids, the
+           card's memory in use at least 1.5 GB above what it was before
+           (this process's); the line says which it read. Prints the table, each
+           mode's seconds, the children's peak memory; their kernel launches
+           are in their processes and not counted here.
+Every phase line carries ``phase_s``, the seconds since the line before it;
+a line before the ``kernels`` line gives them all and their total.
 Launch counts and lanes launched (the sum of N over a kernel's launches) are
 set to zero just before each path (for l2: its timed run; for modes: each
-mode's three clients and the extract; for fl: the two honest rounds, not
-the tampered one; for train: run (a), not (b), (c) or the KAT check) and
+mode's three clients and the extract; for fl: the honest round, not the
+tampered one; for train: run (a), not (b), (c) or the KAT check; for micro:
+the suite) and
 read just after it; each path's
 line prints both. shared_scalar_mul and scalar_mul_window are on no path of either
 package's defaults (the JAX package never calls the first and runs the
@@ -151,10 +183,14 @@ import asyncio
 import importlib.util
 import json
 import math
+import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -165,7 +201,7 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
 
-from rofl_tpu_torch import bindings  # noqa: E402
+from rofl_tpu_torch import bench_suite, bindings  # noqa: E402
 from rofl_tpu_torch.crypto import l2_range_proof as L2RP  # noqa: E402
 from rofl_tpu_torch.crypto import pedersen, sigma  # noqa: E402
 from rofl_tpu_torch.crypto import range_proof as RP  # noqa: E402
@@ -186,6 +222,7 @@ from rofl_tpu_torch.models import intrinsic, networks  # noqa: E402
 from rofl_tpu_torch.models import trainer as trainer_mod  # noqa: E402
 from rofl_tpu_torch.models.trainer import Trainer  # noqa: E402
 from rofl_tpu_torch.ops import bsgs, curve, fe, fixed_base, kernels, sc  # noqa: E402
+from rofl_tpu_torch.scripts import run_e2e_suite  # noqa: E402
 from rofl_tpu_torch.spec import field as SF  # noqa: E402
 from rofl_tpu_torch.spec import generators as G  # noqa: E402
 from rofl_tpu_torch.spec import ristretto as SR  # noqa: E402
@@ -339,7 +376,31 @@ CHECK_LANES = (1, 77, SMALL_LANES, 8192, D, (1 << 16) + 1, 2 * D)
 SCALAR_MUL_LANES = (1, 77, SMALL_LANES, D, 2 * D, 3 * D, 4 * D)
 
 
+class PhaseClock:
+    """Seconds between phase lines: each line of a phase carries the time
+    since the line before it (the first since ``start``), so the phases'
+    seconds add up to the script's."""
+
+    def __init__(self):
+        self.start()
+
+    def start(self) -> None:
+        self.mark = time.perf_counter()
+        self.seconds: dict[str, float] = {}
+
+    def lap(self, phase: str) -> float:
+        now = time.perf_counter()
+        self.seconds[phase] = now - self.mark
+        self.mark = now
+        return self.seconds[phase]
+
+
+PHASES = PhaseClock()
+
+
 def emit(obj: dict) -> None:
+    if "phase" in obj:
+        obj = {**obj, "phase_s": PHASES.lap(obj["phase"])}
     print(json.dumps(obj), flush=True)
 
 
@@ -825,10 +886,16 @@ def phase_kernels() -> dict:
 
     # scalar_mul: the kernel walks the bits from the top, the plain version
     # from the bottom, so the results are held equal as canonical encodings.
+    # Above 50000 lanes the operands are the first lanes of msm_flat's, whose
+    # plain ladders are computed once (ladder_terms).
+    flat = ladder_terms(MSM_PATH_SHAPES["msm_flat"][0], rng)
     for n in SCALAR_MUL_LANES:
-        k, p = test_ladder_operands(n, rng)
+        if n > D:
+            k, p, want = lanes(flat["k"], n), lanes(flat["p"], n), lanes(flat["terms"], n)
+        else:
+            k, p = test_ladder_operands(n, rng)
+            want, plain_seconds = synced(lambda: kernels.scalar_mul_ref(k, p))
         got = kernels.scalar_mul(k, p)
-        want, plain_seconds = synced(lambda: kernels.scalar_mul_ref(k, p))
         hold("scalar_mul", (kernels.compress(got),), (kernels.compress(want),))
         if n <= D:  # one scalar for every point: a random one, and the all -8 one
             for b in (n // 2, 4) if n >= 32 else (n // 2,):
@@ -841,7 +908,8 @@ def phase_kernels() -> dict:
         if n == 4 * D:
             records["scalar_mul"]["ms_at_4n"] = device_ms(
                 lambda: kernels.scalar_mul(k, p), reps=2, rounds=3)
-    check_msm(records, hold, rng)
+    check_msm(records, hold, rng, flat)
+    del flat
     check_shared_and_window(records, hold, rng)
     check_sums(records, hold, rng)
     torch.cuda.synchronize()
@@ -861,7 +929,9 @@ def phase_kernels() -> dict:
 # same inputs, at the l2 path's shapes, where the kernel cuts each group
 # into slices: the provers' S sum (16 groups of 65536 terms), the batched
 # square-rand verify (300 000 terms) and the range proofs' combined verify
-# (131 618 terms).
+# (131 618 terms). msm_flat's two shapes share one set of operands: the
+# plain version at 300 000 terms is the sum of the plain ladders, which are
+# made once (ladder_terms), and at 131 618 the sum of their first lanes.
 MSM_FLAT_LANES = (1, 77)
 MSM_GROUPS = (2, 64, 4096)
 MSM_N_GROUPS = 16
@@ -875,7 +945,31 @@ def msm_plan(n_groups: int, group: int) -> int:
                               kernels.msm_blocks_per_wave(torch.device(DEVICE)))
 
 
-def check_msm(records: dict, hold, rng: np.random.Generator) -> None:
+def lanes(x, n: int):
+    """The first n lanes of a (16, N) tensor or of a tuple of them, contiguous."""
+    if isinstance(x, torch.Tensor):
+        return x[:, :n].contiguous()
+    return tuple(c[:, :n].contiguous() for c in x)
+
+
+def ladder_terms(n: int, rng: np.random.Generator) -> dict:
+    """Ladder operands of n lanes and their plain ladders, k_i * P_i, as
+    ``kernels.msm_groups_ref`` computes them (``scalar_mul_ref`` in slices
+    of ``MSM_REF_SLICE`` lanes), once for the checks that need their first
+    lanes; with the seconds that took."""
+    k, p = test_ladder_operands(n, rng)
+    step = kernels.MSM_REF_SLICE
+
+    def plain():
+        parts = [kernels.scalar_mul_ref(k[:, lo:lo + step], tuple(c[:, lo:lo + step] for c in p))
+                 for lo in range(0, n, step)]
+        return tuple(torch.cat(cs, dim=1) for cs in zip(*parts))
+
+    terms, seconds = synced(plain)
+    return {"k": k, "p": p, "terms": terms, "seconds": seconds}
+
+
+def check_msm(records: dict, hold, rng: np.random.Generator, flat: dict) -> None:
     def encodings(out):
         return (kernels.compress(tuple(out)),)
 
@@ -906,10 +1000,16 @@ def check_msm(records: dict, hold, rng: np.random.Generator) -> None:
                  encodings(kernels.msm_groups_ref(k1, p, group)))
 
     for name, (n, group) in MSM_PATH_SHAPES.items():
-        k, p = test_ladder_operands(n, rng)
         rec = records[name]
-        got, plain = call(name, k, p, group)
-        want, plain_seconds = synced(plain)
+        if name == "msm_flat":  # msm_flat_ref: the sum of the plain ladders
+            k, p = flat["k"], flat["p"]
+            got = kernels.msm_flat(k, p)
+            want, sum_seconds = synced(lambda: kernels.point_sum_ref(flat["terms"], 1, n, 1))
+            plain_seconds = flat["seconds"] + sum_seconds
+        else:
+            k, p = test_ladder_operands(n, rng)
+            got, plain = call(name, k, p, group)
+            want, plain_seconds = synced(plain)
         hold(name, encodings(got), encodings(want))
         rec["checked_lanes"].append(n if name == "msm_flat" else [n // group, group])
         rec["n"], rec["group"] = n, group
@@ -920,15 +1020,13 @@ def check_msm(records: dict, hold, rng: np.random.Generator) -> None:
         rec["bound_ms"], rec["bound_by"] = msm_bound_ms(n, group)
         rec["library_ms"] = None
         if name == "msm_flat":
-            kv, pv = k[:, :MSM_VERIFY_TERMS].contiguous(), tuple(
-                c[:, :MSM_VERIFY_TERMS].contiguous() for c in p)
-            got, plain = call(name, kv, pv, MSM_VERIFY_TERMS)
-            want, plain_seconds = synced(plain)
-            hold(name, encodings(got), encodings(want))
+            kv, pv = lanes(k, MSM_VERIFY_TERMS), lanes(p, MSM_VERIFY_TERMS)
+            want = kernels.point_sum_ref(lanes(flat["terms"], MSM_VERIFY_TERMS), 1,
+                                         MSM_VERIFY_TERMS, 1)
+            hold(name, encodings(kernels.msm_flat(kv, pv)), encodings(want))
             rec["checked_lanes"].append(MSM_VERIFY_TERMS)
             rec["slices_at_131618"] = msm_plan(1, MSM_VERIFY_TERMS)
             rec["ms_at_131618"] = device_ms(lambda: kernels.msm_flat(kv, pv), reps=2, rounds=3)
-            rec["plain_ms_at_131618"] = 1e3 * plain_seconds
             rec["bound_ms_at_131618"] = msm_bound_ms(MSM_VERIFY_TERMS, MSM_VERIFY_TERMS)[0]
         del k, p, got, want
         torch.cuda.empty_cache()
@@ -1734,7 +1832,7 @@ def phase_modes(l2_metric: float) -> dict:
 
 FL_SEED = 41
 FL_CLIENTS = 4  # num_clients of configs/mnist_range_e2e.yml and mnist_l2_compressed.yml
-FL_ROUNDS = 2
+FL_ROUNDS = 1  # and the tampered round; cut from 2 to keep the script inside its time
 FL_MODEL = "models/resnet18_intrinsic_50k.txt"
 FL_KERNELS = ("point_add", "compress", "decompress", "sc_reduce_wide", "sc_mul", "sc_add",
               "sc_sub", "scalar_mul", "msm_flat", "msm_groups", "point_sum", "sc_sum")
@@ -1843,7 +1941,7 @@ def fl_client_stages(log: dict) -> dict:
 
 
 def phase_fl() -> dict:
-    """Four clients, two EncL2 rounds at d = 50000 through the server, then
+    """Four clients, FL_ROUNDS EncL2 rounds at d = 50000 through the server, then
     one round with a tampered upload."""
     rng = np.random.default_rng(FL_SEED)
     initial = read_model_from_file(FL_MODEL)
@@ -1906,8 +2004,10 @@ def phase_fl() -> dict:
 
 TRAIN_CONFIG = "configs/mnist_range_e2e.yml"
 LAZY_CONFIG = "configs/mnist_l2_compressed.yml"
-TRAIN_ROUNDS = 2  # both files say 5
+TRAIN_ROUNDS = 1  # (a): the file says 5
+LAZY_ROUNDS = 2  # (b) and (c): the file says 5; lazy verification needs a second round
 TRAIN_CLIENTS = 4
+LAZY_CLIENTS = 2  # (b) and (c): the file says 4; client 1 is the tampered one
 TRAIN_SEED = 61
 TRAIN_KERNELS = MODES_KERNELS + ("scalar_mul",)
 TRAIN_TIMEOUT_S = 600.0
@@ -1937,7 +2037,7 @@ def cli_args(*argv):
 async def train_run(cfg: ServerConfig, services, evaluator, tamper_round=None):
     """One experiment in this event loop, as the CLI's commands run it in
     their processes: the server of `cfg`, one trainer service a client
-    (``make_train_server``), ``TRAIN_CLIENTS`` clients whose trainers are
+    (``make_train_server``), a client a service, whose trainers are
     ``GrpcTrainer``s (zero blindings, as ``cli clients``), and an observer
     with `evaluator`. With `tamper_round`, client 1's rand proof is flipped
     in that round. Returns (state, clients, trainers, observer, broadcast
@@ -1966,7 +2066,7 @@ async def train_run(cfg: ServerConfig, services, evaluator, tamper_round=None):
         trainers = [RecordingTrainer(GrpcTrainer(f"127.0.0.1:{ts.port}"))
                     for ts in trainer_servers]
         clients = [FlServiceClient(address, cfg.model_id, i, trainers[i], device=DEVICE)
-                   for i in range(TRAIN_CLIENTS)]
+                   for i in range(len(services))]
         for i, c in enumerate(clients):
             c.rng = np.random.default_rng(TRAIN_SEED + i)
         if tamper_round is not None:
@@ -2159,15 +2259,16 @@ def phase_train() -> dict:
 
     # (b) lazy verification, honest; (c) the same with a tampered round 0
     lazy = load_experiment(LAZY_CONFIG, lazy_eval=True, device=DEVICE).server
-    lazy.num_rounds, lazy.write_model_file, lazy.bench_dir = TRAIN_ROUNDS, False, None
+    lazy.num_rounds, lazy.write_model_file, lazy.bench_dir = LAZY_ROUNDS, False, None
     lazy.verification_threads = cfg.verification_threads
-    dummies = [DummyTrainService() for _ in range(TRAIN_CLIENTS)]
+    lazy.num_clients = LAZY_CLIENTS
+    dummies = [DummyTrainService() for _ in range(LAZY_CLIENTS)]
     t0 = time.perf_counter()
     honest, lazy_clients, lazy_trainers, _, lazy_marks = asyncio.run(
         train_run(lazy, dummies, None))
     lazy_wall = time.perf_counter() - t0
     checks["lazy_status_done"] = honest.status == "done"
-    checks.update(replay_checks(honest, lazy_trainers, lazy, TRAIN_ROUNDS, prefix="lazy_"))
+    checks.update(replay_checks(honest, lazy_trainers, lazy, LAZY_ROUNDS, prefix="lazy_"))
     tampered, _, tampered_trainers, _, _ = asyncio.run(
         train_run(lazy, dummies, None, tamper_round=0))
     restore_counts(counts)
@@ -2180,7 +2281,9 @@ def phase_train() -> dict:
     result.update({"lazy": {"config": LAZY_CONFIG, "enc_type": "EncL2Compressed",
                             "trainer": "DummyTrainService", "round_s":
                             [b - a for a, b in zip(lazy_marks, lazy_marks[1:])],
-                            "wall_s": lazy_wall,
+                            "wall_s": lazy_wall, "clients": LAZY_CLIENTS,
+                            "reduced": {"num_rounds": [5, LAZY_ROUNDS],
+                                        "num_clients": [4, LAZY_CLIENTS]},
                             "server_ms": {r.round_id: r.time_state.deltas_ms()
                                           for r in sorted(honest.rounds,
                                                           key=lambda s: s.round_id)},
@@ -2198,7 +2301,234 @@ def phase_train() -> dict:
     return counts
 
 
+# -- phase 10: the micro-benchmark suite ---------------------------------------
+
+MICRO_DIM = 32768  # the first of the reference's dims (bench_constants.rs)
+# bench_l2rangeproof draws values up to 1/64 of the clip bound; at range 8
+# their squared sum passes the L2 bound only below d = 256, in both packages
+# (reference hazard 14): it runs at 128, and must raise L2NormError at 32768.
+MICRO_L2_DIM = 128
+MICRO_RUNS = 16  # the 11 benches' create and verify runs
+MICRO_KERNELS = FL_KERNELS
+
+
+def phase_micro(smi: str) -> dict:
+    """``bench_suite.main`` for all 11 benches at d = 32768 (l2rangeproof at
+    128), one sample each after its warm-up, on the card, into a temporary
+    directory. Its verify samples raise on a refused proof; each file must
+    hold one integer line."""
+    common = ["--samples", "1", "--device", DEVICE]
+    others = [name for name in bench_suite.BENCHES if name != "l2rangeproof"]
+    with tempfile.TemporaryDirectory() as out:
+        start_path()
+        t0 = time.perf_counter()
+        results = bench_suite.main(["--bench", *others, "--dims", str(MICRO_DIM), "--out", out,
+                                    *common])
+        results += bench_suite.main(["--bench", "l2rangeproof", "--dims", str(MICRO_L2_DIM),
+                                     "--out", out, *common])
+        wall = time.perf_counter() - t0
+        counts = path_counts()
+        files = {}
+        for name in sorted(os.listdir(out)):
+            with open(os.path.join(out, name)) as f:
+                files[name] = f.read().splitlines()
+        try:
+            bench_suite.main(["--bench", "l2rangeproof", "--dims", str(MICRO_DIM), "--out", out,
+                              *common])
+            l2_raised = False
+        except L2RP.L2NormError:
+            l2_raised = True
+        restore_counts(counts)
+    launches = counts["launches"]
+    runs = [r["name"] for r in results]
+    checks = {
+        "every_bench_ran": len(results) == MICRO_RUNS and len(set(runs)) == MICRO_RUNS,
+        "a_file_a_run": sorted(os.path.basename(r["file"]) for r in results) == list(files),
+        "one_integer_line_a_file": all(len(lines) == 1 and lines[0].isdigit()
+                                       for lines in files.values()),
+        "verify_samples_passed": sum(n.startswith("verify-") for n in runs) == 7
+        and "bench_paper_dlog2" in runs,
+        "l2rangeproof_at_32768_raises_l2_norm_error": l2_raised,
+    }
+    result = {"phase": "micro", "nvidia_smi": smi, "d": MICRO_DIM,
+              "d_l2rangeproof": MICRO_L2_DIM, "samples": 1,
+              "fp": [FP.n_bits, FP.n_frac], "range": bench_suite.DEFAULT_RANGE,
+              "ms": {r["name"]: r["ms"][0] for r in results},
+              "bench_lines": {name: lines[0] for name, lines in files.items()},
+              "wall_s": wall, **checks, "launches": launches, "lanes": counts["lanes"]}
+    emit(result)
+    failed = [name for name, ok in checks.items() if not ok]
+    failed += [f"{name} was never launched" for name in MICRO_KERNELS if launches[name] == 0]
+    if failed:
+        sys.exit(f"micro failed: {failed}")
+    return counts
+
+
+# -- phase 11: the e2e suite, one process a role ---------------------------------
+
+E2E_MODES = ("Plain", "Range", "l2Compressed")  # the JAX suite's default modes
+E2E_CONFIG = "configs/example_config.yml"
+E2E_CLIENTS = 4
+E2E_ROUNDS = 2  # the suite's default is 3
+E2E_TRAINERS = 1
+E2E_TIMEOUT_S = 300.0
+E2E_MEMORY_BYTES = 1.5e9  # four CUDA contexts and more, where the pids are hidden
+
+
+def free_port_block(n: int) -> int:
+    """A port p with p .. p + n - 1 all free on 127.0.0.1 now."""
+    for base in range(20000 + os.getpid() % 20000, 60000, 97):
+        socks = []
+        try:
+            for port in range(base, base + n):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("127.0.0.1", port))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise RuntimeError(f"no block of {n} free ports")
+
+
+def smi_query(*args) -> list[list[str]]:
+    out = subprocess.run(["nvidia-smi", *args, "--format=csv,noheader,nounits"], check=True,
+                         capture_output=True, text=True).stdout
+    return [[x.strip() for x in line.split(",")] for line in out.splitlines() if line.strip()]
+
+
+class DeviceSampler:
+    """``nvidia-smi`` every second in a thread: the compute processes with
+    their memory, and the card's memory in use (MiB)."""
+
+    def __init__(self):
+        self.samples: list[dict] = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def sample(self) -> dict:
+        apps = [(int(pid), int(mib)) for pid, mib in
+                smi_query("--query-compute-apps=pid,used_memory")
+                if pid.isdigit() and mib.isdigit()]
+        used = int(smi_query("--query-gpu=memory.used")[0][0])
+        return {"apps": apps, "used_mib": used}
+
+    def _run(self):
+        while not self._stop.is_set():
+            self.samples.append(self.sample())
+            self._stop.wait(1.0)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(30)
+
+
+def read_lines(path: str) -> list[str]:
+    """The non-blank lines of a file; none where there is no file."""
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [line for line in f.read().splitlines() if line.strip()]
+
+
+def group_left(pid: int) -> bool:
+    try:
+        os.killpg(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+def phase_e2e(smi: str) -> dict:
+    """``run_e2e_suite`` over Plain, Range and l2Compressed: for each mode,
+    ``run_e2e`` starts a server, a trainer service, an observer and one
+    ``clients`` process of 4 clients, each ``python -m rofl_tpu_torch.cli
+    --device cuda`` in its own process on this card, on
+    configs/example_config.yml (mnist_dev, all 19 090 parameters, trained
+    by ``TorchTrainService``) cut to 2 rounds."""
+    own = os.getpid()
+    torch.cuda.synchronize()
+    sampler = DeviceSampler()
+    baseline = sampler.sample()
+    with tempfile.TemporaryDirectory() as out, sampler:
+        t0 = time.perf_counter()
+        rows, outcomes = run_e2e_suite.main([
+            "--modes", *E2E_MODES, "--clients", str(E2E_CLIENTS), "--rounds", str(E2E_ROUNDS),
+            "--trainers", str(E2E_TRAINERS), "--config", E2E_CONFIG, "--out", out,
+            "--port", str(free_port_block(10 * len(E2E_MODES))),
+            "--timeout", str(E2E_TIMEOUT_S), "--device", DEVICE])
+        wall = time.perf_counter() - t0
+        bench_lines = {}
+        for mode in E2E_MODES:
+            logdir = os.path.join(out, f"benchlog_{mode}")
+            bench_lines[mode] = {}
+            for i in range(E2E_CLIENTS):
+                bench_lines[mode][i] = len(read_lines(os.path.join(logdir, f"client{i}.bench")))
+            bench_lines[mode]["server_ms"] = [
+                [float(x) for x in line.split(",")]
+                for line in read_lines(os.path.join(logdir, "benchlog", "server_model1.bench"))]
+    # The card's processes before the phase (this one, under whatever pid
+    # the container shows) are not children; the children's contexts are
+    # let go of within seconds of their deaths.
+    before = {pid for pid, _ in baseline["apps"]} | {own}
+    deadline = time.monotonic() + 30
+    while True:
+        left_on_card = [pid for pid, _ in sampler.sample()["apps"] if pid not in before]
+        if not left_on_card or time.monotonic() > deadline:
+            break
+        time.sleep(1)
+    children = [[(pid, mib) for pid, mib in s["apps"] if pid not in before]
+                for s in sampler.samples]
+    pids_visible = any(children)
+    peak_processes = max((len(c) for c in children), default=0)
+    peak_children_mib = max((sum(mib for _, mib in c) for c in children), default=0)
+    peak_above_own_mib = max((s["used_mib"] for s in sampler.samples), default=0) \
+        - baseline["used_mib"]
+    by_mode = {row["mode"]: row for row in rows}
+    plain_bytes = by_mode.get("Plain", {}).get("total_bandwidth_bytes", 0)
+    checks = {
+        "servers_exited_0_in_time": {m: o.ok for m, o in outcomes.items()} == {
+            m: True for m in E2E_MODES},
+        "client_bench_two_lines": all(lines[i] == E2E_ROUNDS for lines in bench_lines.values()
+                                      for i in range(E2E_CLIENTS)),
+        "accuracy_parsed": all(by_mode[m]["accuracy"] != "" for m in E2E_MODES),
+        "encrypted_modes_send_more_than_plain": all(
+            by_mode[m]["total_bandwidth_bytes"] > plain_bytes > 0 for m in E2E_MODES[1:]),
+        "no_child_left": not any(group_left(pid) for o in outcomes.values() for pid in o.pids)
+        and not left_on_card,
+        "roles_on_the_card": peak_processes >= 4 if pids_visible
+        else peak_above_own_mib * 2**20 >= E2E_MEMORY_BYTES,
+    }
+    result = {
+        "phase": "e2e", "nvidia_smi": smi, "config": E2E_CONFIG, "modes": list(E2E_MODES),
+        "clients": E2E_CLIENTS, "trainers": E2E_TRAINERS, "observer": True,
+        "model": "mnist_dev (19 090 parameters)", "reduced": {"num_rounds": [3, E2E_ROUNDS]},
+        "table": rows, "wall_s": wall,
+        "mode_s": {m: o.seconds for m, o in outcomes.items()},
+        "server_rc": {m: o.server_rc for m, o in outcomes.items()},
+        "errors": {m: o.error for m, o in outcomes.items() if o.error},
+        "bench_lines": bench_lines,
+        "device_read": "processes" if pids_visible else "memory",
+        "card_processes_before": sorted(before - {own}), "own_pid": own,
+        "peak_child_processes": peak_processes, "left_on_card": left_on_card,
+        "peak_children_mib": peak_children_mib if pids_visible else None,
+        "peak_memory_above_own_mib": peak_above_own_mib, "samples": len(sampler.samples),
+        "launches": "in the children's processes: not counted here", **checks}
+    emit(result)
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        sys.exit(f"e2e failed: {failed}")
+    return result
+
+
 def main() -> None:
+    PHASES.start()
     smi = phase_device()
     ptxas = phase_build()
     records = phase_kernels()
@@ -2206,13 +2536,16 @@ def main() -> None:
     sigma_counts = phase_sigma(state)
     l2_counts, l2_metric = phase_l2()
     counts_by_path = {"round": round_counts, "sigma": sigma_counts, "l2": l2_counts,
-                      **phase_modes(l2_metric), "fl": phase_fl(), "train": phase_train()}
+                      **phase_modes(l2_metric), "fl": phase_fl(), "train": phase_train(),
+                      "micro": phase_micro(smi)}
+    phase_e2e(smi)
+    emit({"phases_s": PHASES.seconds, "total_s": sum(PHASES.seconds.values()),
+          "limit_s": 1200})
     print(smi, flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "launches_by_path", "lanes",
             "lanes_by_path", "match", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "n", "checked_lanes")
-    extra_keys = ("group", "window", "slices", "ms_at_131618", "plain_ms_at_131618",
-                  "bound_ms_at_131618", "slices_at_131618", "ms_at_4n", "scalars", "windows",
+    extra_keys = ("group", "window", "slices", "ms_at_131618", "bound_ms_at_131618", "slices_at_131618", "ms_at_4n", "scalars", "windows",
                   "scalar_mul_ms_same_inputs", "rotated_share", "valid_share", "replaces_also",
                   "chain_ms", "bound_bytes_ms", "bound_ops_ms", "layouts",
                   "l_minus_1_100001_equal", "ptxas")

@@ -33,6 +33,7 @@ mesh arguments and the ``ROFL_TIMING`` ticks.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from functools import lru_cache
 
@@ -64,11 +65,16 @@ def _bp_gens(n: int, m: int, device: torch.device) -> tuple[PointArray, PointArr
             curve.from_uniform_bytes(np.concatenate(h_blobs), device))
 
 
+_GENS_LOCK = threading.Lock()
+
+
 def device_bp_gens(n: int, m: int, device="cuda") -> tuple[PointArray, PointArray]:
     """BulletproofGens(n, m) shares concatenated party-major, as points on
     `device`: host SHAKE-256 streams + batched Elligator map. Cached per
-    (n, m, device)."""
-    return _bp_gens(n, m, fe.canonical_device(device))
+    (n, m, device); made once when several threads (a server's verifiers)
+    ask at the same time."""
+    with _GENS_LOCK:
+        return _bp_gens(n, m, fe.canonical_device(device))
 
 
 def _point_slice(p: PointArray, sl) -> PointArray:

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import asyncio
 import logging
+import threading
 import time
 
 import numpy as np
@@ -60,14 +61,19 @@ class TrainServiceBase:
 
 class TorchTrainService(TrainServiceBase):
     """Real local training (``JaxTrainService``'s counterpart): the update is
-    train(weights) - weights, in float32."""
+    train(weights) - weights, in float32. Calls run one at a time: several
+    clients may share one service, and its trainer's weights and module are
+    shared (``functional_call`` swaps the module's parameters in place), so
+    two calls at once would train on each other's tensors."""
 
     def __init__(self, trainer):
         self.trainer = trainer
+        self._lock = threading.Lock()
 
     def train_model(self, weights: np.ndarray, round_id: int) -> np.ndarray:
-        self.trainer.set_weights(weights)
-        new_w = self.trainer.train(round_id)
+        with self._lock:
+            self.trainer.set_weights(weights)
+            new_w = self.trainer.train(round_id)
         return np.asarray(new_w, np.float32) - weights
 
 

@@ -14,6 +14,10 @@ collections (``[``, ``{``), block sequences (``- ``), anchors, aliases and
 tags (``&``, ``*``, ``!``), block scalars (``|``, ``>``), directives, tabs,
 a second document, quoted or complex keys, multi-line scalars, sexagesimal
 numbers and timestamps.
+
+``safe_dump`` writes the same subset: nested mappings of None, bool, int,
+float and str values, which both this reader and ``yaml.safe_load`` read
+back to an equal dict.
 """
 
 from __future__ import annotations
@@ -219,3 +223,92 @@ def _mapping(lines, pos: int, indent: int):
             value = None
         out[key] = value
     return out, pos
+
+
+# Strings written without quotes: letters, digits and ``_ . / -`` with single
+# inner spaces, not starting with ``-``, and only where the reader resolves
+# the text back to the same string.
+_PLAIN_STR = re.compile(r"^[A-Za-z0-9_./](?:[A-Za-z0-9_./-]| (?! ))*(?<! )$")
+
+
+def _plain_str(text: str) -> bool:
+    if not _PLAIN_STR.match(text):
+        return False
+    try:
+        return resolve_plain(text) == text
+    except YamlSubsetError:  # a timestamp or sexagesimal number
+        return False
+
+
+def _quoted(text: str) -> str:
+    out = []
+    for ch in text:
+        code = ord(ch)
+        if ch in '"\\':
+            out.append("\\" + ch)
+        elif 0x20 <= code < 0x7F:
+            out.append(ch)
+        elif code < 0x100:
+            out.append(f"\\x{code:02x}")
+        elif code < 0x10000:
+            out.append(f"\\u{code:04x}")
+        else:
+            out.append(f"\\U{code:08x}")
+    return '"' + "".join(out) + '"'
+
+
+def _float_text(value: float) -> str:
+    """PyYAML's representation: ``repr`` with a ``.0`` put before a bare
+    exponent, so that the YAML 1.1 float pattern matches it."""
+    if value != value:
+        return ".nan"
+    if value in (float("inf"), float("-inf")):
+        return ".inf" if value > 0 else "-.inf"
+    text = repr(value)
+    if "." not in text and "e" in text:
+        text = text.replace("e", ".0e")
+    return text
+
+
+def _scalar(value) -> str:
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        return _float_text(value)
+    if isinstance(value, str):
+        return value if _plain_str(value) else _quoted(value)
+    raise YamlSubsetError(f"{type(value).__name__} {value!r} is outside the subset")
+
+
+def _key(key) -> str:
+    text = _scalar(key)
+    if text.startswith('"'):
+        raise YamlSubsetError(f"key {key!r} would need quotes, which the subset does not read")
+    return text
+
+
+def safe_dump(doc: dict) -> str:
+    """`doc`, a non-empty mapping whose values are None, bool, int, float,
+    str or non-empty mappings of the same, as block YAML (two spaces an
+    indent, keys in the dict's order); ``YamlSubsetError`` for anything
+    else, a sequence among them."""
+    if not isinstance(doc, dict):
+        raise YamlSubsetError(f"the document must be a mapping, not {type(doc).__name__}")
+    lines: list[str] = []
+
+    def block(mapping: dict, indent: str) -> None:
+        if not mapping:
+            raise YamlSubsetError("an empty mapping has no block form")
+        for key, value in mapping.items():
+            if isinstance(value, dict):
+                lines.append(f"{indent}{_key(key)}:")
+                block(value, indent + "  ")
+            else:
+                lines.append(f"{indent}{_key(key)}: {_scalar(value)}")
+
+    block(doc, "")
+    return "\n".join(lines) + "\n"

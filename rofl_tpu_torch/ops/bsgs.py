@@ -24,6 +24,7 @@ giant step m, value = i*m + pow, default max_it = 2^n_bits / m.
 from __future__ import annotations
 
 import math
+import threading
 
 import torch
 
@@ -32,6 +33,7 @@ from .curve import PointArray
 from ..spec import ristretto as SR
 
 _tables: dict = {}
+_tables_lock = threading.Lock()
 
 
 def _limbs_to_keys(limbs: torch.Tensor) -> torch.Tensor:
@@ -59,8 +61,13 @@ def build_table(m: int, device="cuda"):
     the device.
     """
     device = fe.canonical_device(device)
-    if (m, device) in _tables:
+    with _tables_lock:
+        if (m, device) not in _tables:
+            _tables[(m, device)] = _build_table(m, device)
         return _tables[(m, device)]
+
+
+def _build_table(m: int, device: torch.device):
     from ..crypto import pedersen
 
     ks = torch.arange(m + 1, dtype=torch.int64, device=device)
@@ -72,13 +79,13 @@ def build_table(m: int, device="cuda"):
     table = PointArray(*[c[:, :windows] for c in pedersen.base_B().table(device)])
     tab = fixed_base.mul(table, k_limbs)
     keys = _limbs_to_keys(curve.compress(tab))  # (8, m+1)
-    _tables[(m, device)] = sort_table(keys, ks.to(torch.int32))
-    return _tables[(m, device)]
+    return sort_table(keys, ks.to(torch.int32))
 
 
 def clear_tables() -> None:
     """Forget the memoised tables (they are rebuilt at the next use)."""
-    _tables.clear()
+    with _tables_lock:
+        _tables.clear()
 
 
 def _lex_less(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

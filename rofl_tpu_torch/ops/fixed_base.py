@@ -16,6 +16,8 @@ device.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from . import curve, fe
@@ -84,17 +86,20 @@ def mul(table: PointArray, scalars: torch.Tensor) -> PointArray:
 
 
 class FixedBase:
-    """A base point with its device tables, built lazily, one per device."""
+    """A base point with its device tables, built lazily, one per device
+    (once, when several threads ask at the same time)."""
 
     def __init__(self, spec_point):
         self.spec_point = spec_point
         self._tables: dict = {}
+        self._lock = threading.Lock()
 
     def table(self, device="cuda") -> PointArray:
         device = fe.canonical_device(device)
-        if device not in self._tables:
-            self._tables[device] = build_table(curve.pack_points([self.spec_point], device))
-        return self._tables[device]
+        with self._lock:
+            if device not in self._tables:
+                self._tables[device] = build_table(curve.pack_points([self.spec_point], device))
+            return self._tables[device]
 
     def mul(self, scalars: torch.Tensor) -> PointArray:
         return mul(self.table(scalars.device), scalars)

@@ -153,6 +153,26 @@ def test_torch_train_service_returns_the_trainers_update():
     assert np.any(update != 0) and trainer.round_log[4]["steps"] == 2
 
 
+def test_clients_sharing_one_torch_train_service_train_one_at_a_time(monkeypatch):
+    """Four clients of one service at once, as ``run_e2e --trainers 1``
+    gives them: each gets the update of its weights, first time (the
+    trainer's module and weights are shared: calls in parallel trained on
+    each other's tensors, failed, and were tried again 5 s later)."""
+    monkeypatch.setattr(GrpcTrainer, "retry_s", 60.0)  # a retry would time the test out
+    trainer = Trainer("mnist_dev", "mnist", client_id=1, num_clients=32, device="cpu")
+    twin = Trainer("mnist_dev", "mnist", client_id=1, num_clients=32, device="cpu")
+    w = twin.get_weights() + model(19090, 5) * np.float32(0.01)
+
+    async def four(address):
+        return await asyncio.wait_for(asyncio.gather(
+            *(GrpcTrainer(address).train_for_round(None, w, 3) for _ in range(4))), 30)
+
+    updates = asyncio.run(port_call(TorchTrainService(trainer), four))
+    twin.set_weights(w)
+    want = twin.train(3) - w
+    assert all(np.array_equal(u, want) for u in updates)
+
+
 class FailsOnce(DummyTrainService):
     def __init__(self):
         self.calls = 0
