@@ -2,7 +2,9 @@
 against its plain version, run the secure-aggregation round, the Σ-protocol
 path (prove → wire → per-lane verify), the L2-norm client round
 (encrypt → wire → verify), the server's round in the other encrypted
-modes (encrypt → wire → verify → accumulate → extract), the FL runtime
+modes (encrypt → wire → verify → accumulate → extract), the device mesh
+(the sharded data plane, the mesh-routed provers and verifiers, the
+multi-device dry run and the scaling table), the FL runtime
 (a server and four clients over the TCP transport) at full width, the
 training path (a YAML experiment with trainer services on the card), the
 micro-benchmark suite, and the e2e suite with every role in its own process.
@@ -92,6 +94,27 @@ Phases:
            proof or compressed proof is refused, an accumulator of two of
            the three clients extracts None, and one EncRange client at
            check_percentage 0.5 verifies after its wire round trip.
+  mesh     the device mesh (``parallel.mesh``) at d = 50000, FpConfig(16, 7),
+           16 partitions, range 8, L2 range 16, on a virtual mesh of the
+           card (cuda:0 four times, and three times for the lane counts that
+           do not divide) and on ``param_mesh()`` over every card: (a)
+           sharded_msm of the l2 verifier's 300 000 terms and of their first
+           50 000 (padded by 2 at 3 shards) equals msm.msm, encoding for
+           encoding; (b) one EncParamsL2 update verifies with the mesh (its
+           range proofs' combined MSM sharded), timed beside the same verify
+           without it (mesh_l2_verify_s_d50000), a flipped range-proof bit
+           is refused, and create_rangeproof with the mesh gives the bytes it
+           gives without; (c) the rand and square-rand proofs over 3 shards
+           equal the unsharded ones (responses, encodings) and verify over
+           the shards; (d) ``parallel.dryrun.dryrun_multichip`` on a 2 x 2
+           mesh of the card: stage 1 at the JAX dry run's shapes, stages 2-5
+           at d = 50000 with the 2^16 BSGS table; stage 1's commitments of
+           the JAX package's updates equal the JAX mesh's
+           (tests/data/torch_port_mesh_kat.json) and the port's updates are
+           within a fixed-point unit of them; (e) ``scaling_table.main`` at
+           --d 50000 --parts 16 over 1, 2 and 4 shards, its rows on a line
+           of their own. Launches count the mesh-routed calls and the dry
+           run, not the unsharded calls they are held against.
   fl       the FL runtime end to end: one server (``fl.server``: TrainingState,
            make_server) and 4 ``FlServiceClient``s and an ``FLObserver`` in
            one event loop over the port's TCP transport on 127.0.0.1 (an
@@ -168,7 +191,8 @@ Every phase line carries ``phase_s``, the seconds since the line before it;
 a line before the ``kernels`` line gives them all and their total.
 Launch counts and lanes launched (the sum of N over a kernel's launches) are
 set to zero just before each path (for l2: its timed run; for modes: each
-mode's three clients and the extract; for fl: the honest round, not the
+mode's three clients and the extract; for mesh: the mesh-routed calls of
+(a)-(c) and the dry run; for fl: the honest round, not the
 tampered one; for train: run (a), not (b), (c) or the KAT check; for micro:
 the suite) and
 read just after it; each path's
@@ -180,7 +204,10 @@ second only under ROFL_SMUL_W > 1): their launches are 0 on every path.
 from __future__ import annotations
 
 import asyncio
+import contextlib
+import hashlib
 import importlib.util
+import io
 import json
 import math
 import os
@@ -221,8 +248,11 @@ from rofl_tpu_torch.fl.util import read_model_from_file  # noqa: E402
 from rofl_tpu_torch.models import intrinsic, networks  # noqa: E402
 from rofl_tpu_torch.models import trainer as trainer_mod  # noqa: E402
 from rofl_tpu_torch.models.trainer import Trainer  # noqa: E402
-from rofl_tpu_torch.ops import bsgs, curve, fe, fixed_base, kernels, sc  # noqa: E402
-from rofl_tpu_torch.scripts import run_e2e_suite  # noqa: E402
+from rofl_tpu_torch.ops import bsgs, curve, fe, fixed_base, kernels, msm, sc  # noqa: E402
+from rofl_tpu_torch.ops.curve import PointArray  # noqa: E402
+from rofl_tpu_torch.parallel import dryrun  # noqa: E402
+from rofl_tpu_torch.parallel import mesh as pmesh  # noqa: E402
+from rofl_tpu_torch.scripts import run_e2e_suite, scaling_table  # noqa: E402
 from rofl_tpu_torch.spec import field as SF  # noqa: E402
 from rofl_tpu_torch.spec import generators as G  # noqa: E402
 from rofl_tpu_torch.spec import ristretto as SR  # noqa: E402
@@ -1828,7 +1858,179 @@ def phase_modes(l2_metric: float) -> dict:
     return counts_by_mode
 
 
-# -- phase 8: the FL runtime: server and clients over the transport ---------------
+# -- phase 8: the device mesh ----------------------------------------------------
+
+MESH_SEED = 71
+MESH_SHARDS = 4  # the virtual mesh: cuda:0 four times
+MESH_ODD_SHARDS = 3  # 300 000 terms split evenly, 50 000 padded by 2
+MESH_SCALING_SHARDS = ("2", "4")
+MESH_KAT_PATH = "tests/data/torch_port_mesh_kat.json"
+MESH_KERNELS = ("point_add", "compress", "decompress", "sc_reduce_wide", "sc_mul", "sc_add",
+                "sc_sub", "scalar_mul", "msm_flat", "msm_groups", "point_sum", "sc_sum")
+
+
+def card_mesh(shards: int) -> pmesh.Mesh:
+    return pmesh.param_mesh(shards, [torch.device(DEVICE, 0)] * shards)
+
+
+def encodings(p) -> bytes:
+    return curve.compress_to_bytes(p).tobytes()
+
+
+def phase_mesh() -> dict:
+    """(a) sharded_msm of the l2 verifier's 300 000 terms (and their first
+    50 000) equals msm.msm at 4 and 3 shards and on every card; (b) one
+    EncParamsL2 round verified with the mesh, a tampered one refused, the
+    range proofs made with the mesh equal to those made without it; (c) the
+    rand and square-rand proofs at d = 50000 over 3 shards equal to the
+    unsharded ones; (d) the dry run on a 2 x 2 mesh of the card, stages 2-5
+    at d = 50000, its stage 1 on the JAX package's updates equal to the
+    JAX mesh's; (e) the scaling table at d = 50000, 16 partitions, 1/2/4
+    shards. Launches are counted on the mesh-routed calls; the unsharded
+    calls they are held against are not counted."""
+    rng = np.random.default_rng(MESH_SEED)
+    virtual, odd, cards = card_mesh(MESH_SHARDS), card_mesh(MESH_ODD_SHARDS), pmesh.param_mesh()
+    seconds, checks = {}, {}
+
+    def stage(name, fn):
+        out, seconds[name] = synced(fn)
+        return out
+
+    def unsharded(fn):
+        """fn() without adding its launches to the path's counts."""
+        saved = path_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        restore_counts(saved)
+        return out
+
+    elem = (FP.l2_clip_bound(16) / D) ** 0.5 / FP.scale / 10.0
+    vals = rng.uniform(-elem, elem, D).astype(np.float32)
+    blind = pedersen.rnd_scalar_tensor(D, rng, DEVICE)
+    enc = P.EncParamsL2.encrypt(vals, blind, L2_CFG, rng, DEVICE)
+    dec = P.EncParamsL2.deserialize(enc.serialize(), FP, DEVICE)
+    rho = pedersen.rnd_scalar_tensor(3 * D, rng, DEVICE)
+    pts, scal, _, _ = sigma.square_rand_batch_terms(b"SquareRandProof", dec.square_proofs,
+                                                    dec.enc_values, rho)
+    torch.cuda.synchronize()
+    start_path()
+
+    # (a) the l2 verifier's 6N-term MSM, and its first 50 000 terms
+    for terms in (6 * D, D):
+        p = PointArray(*[c[:, :terms].contiguous() for c in pts])
+        k = scal[:, :terms].contiguous()
+        want = encodings(unsharded(lambda: stage(f"msm_{terms}_without_mesh",
+                                                 lambda: msm.msm(p, k))))
+        for name, mesh in (("4", virtual), ("3", odd), ("cards", cards)):
+            got = stage(f"sharded_msm_{terms}_{name}", lambda: pmesh.sharded_msm(mesh, p, k))
+            checks[f"sharded_msm_{terms}_{name}_shards_equal"] = encodings(got) == want
+
+    # (b) verify with and without the mesh, a tampered copy, the mesh prover
+    for prefix in ("warmup_", ""):
+        checks[f"{prefix}l2_verify_without_mesh"] = unsharded(lambda: stage(
+            f"{prefix}verify_without_mesh", lambda: dec.verify(rng)))
+        checks[f"{prefix}l2_verify_with_mesh"] = stage(
+            f"{prefix}verify_with_mesh", lambda: dec.verify(rng, virtual))
+    raw = bytearray(dec.range_proofs[5].to_bytes())
+    raw[5 * 32] ^= 1
+    bad = P.EncParamsL2(dec.enc_values, dec.square_proofs,
+                        dec.range_proofs[:5] + [RP.RangeProof.from_bytes(bytes(raw))]
+                        + dec.range_proofs[6:], dec.square_range_proof, dec.prove_range,
+                        dec.l2_prove_range, FP)
+    checks["flipped_range_proof_bit_refused_with_mesh"] = not bad.verify(rng, virtual)
+    clipped = RPV.clip_f32_to_range_vec(vals, FP, L2_CFG.value_range)
+
+    def range_proofs(mesh):
+        proofs, commits = RPV.create_rangeproof(clipped, blind, FP, L2_CFG.value_range,
+                                                L2_CFG.n_partition,
+                                                np.random.default_rng(MESH_SEED + 1), DEVICE,
+                                                mesh)
+        return [p.to_bytes() for p in proofs], encodings(commits)
+
+    want = unsharded(lambda: stage("create_rangeproof_without_mesh", lambda: range_proofs(None)))
+    for name, mesh in (("4", virtual), ("cards", cards)):
+        checks[f"create_rangeproof_{name}_shards_equal"] = stage(
+            f"create_rangeproof_{name}", lambda: range_proofs(mesh)) == want
+
+    # (c) the Σ-proofs over 3 shards (50000 = 3 * 16667 - 1)
+    m = fe.to_tensor(FP.f32_to_scalar_limbs(clipped), DEVICE)
+    r2 = pedersen.rnd_scalar_tensor(D, rng, DEVICE)
+
+    def rand(mesh):
+        p, c = sigma.rand_proof_prove(m, blind, np.random.default_rng(MESH_SEED + 2), mesh=mesh)
+        return p, c, bool(sigma.rand_proof_verify(p, c, mesh=mesh).all())
+
+    def square_rand(mesh):
+        p, c = sigma.square_rand_proof_prove(m, blind, r2, np.random.default_rng(MESH_SEED + 3),
+                                             mesh=mesh)
+        return p, c, bool(sigma.square_rand_proof_verify(p, c, mesh=mesh).all())
+
+    (rp0, rc0, ok0), (sp0, sc0, sok0) = unsharded(lambda: (rand(None), square_rand(None)))
+    rp, rc, ok = stage("rand_proof_3_shards", lambda: rand(odd))
+    sp, scm, sok = stage("square_rand_proof_3_shards", lambda: square_rand(odd))
+    checks["rand_proofs_verify"] = ok0 and ok
+    checks["rand_proof_3_shards_equal"] = (
+        torch.equal(rp.z_m, rp0.z_m) and torch.equal(rp.z_r, rp0.z_r)
+        and all(encodings(a) == encodings(b) for a, b in (
+            (rc.L, rc0.L), (rc.R, rc0.R), (rp.c_prime.L, rp0.c_prime.L),
+            (rp.c_prime.R, rp0.c_prime.R))))
+    checks["square_rand_proofs_verify"] = sok0 and sok
+    checks["square_rand_proof_3_shards_equal"] = (
+        all(torch.equal(a, b) for a, b in ((sp.z_m, sp0.z_m), (sp.z_r1, sp0.z_r1),
+                                           (sp.z_r2, sp0.z_r2)))
+        and all(encodings(a) == encodings(b) for a, b in (
+            (scm.c.L, sc0.c.L), (scm.c.R, sc0.c.R), (scm.c_sq, sc0.c_sq),
+            (sp.c_prime.L, sp0.c_prime.L), (sp.c_prime.R, sp0.c_prime.R),
+            (sp.c_sq_prime, sp0.c_sq_prime))))
+
+    # (d) the dry run on a 2 x 2 mesh of the card
+    lines = []
+    dry = stage("dryrun", lambda: dryrun.dryrun_multichip(
+        4, [torch.device(DEVICE, 0)] * 4, d=D, log=lines.append))
+    torch.cuda.synchronize()
+    counts = path_counts()
+    with open(MESH_KAT_PATH) as f:
+        kat = json.load(f)["dryrun"]
+    kat_mesh = pmesh.make_mesh(kat["clients"], kat["param"], [torch.device(DEVICE, 0)] * (
+        kat["clients"] * kat["param"]))
+    kat_encs = [fe.to_tensor(FP.f32_to_scalar_limbs(np.asarray(u, np.float64) / FP.scale),
+                             DEVICE) for u in kat["units"]]
+    agg, agg_ok = dryrun.commit_stage(kat_mesh, kat_encs)
+    checks["dryrun_stage1_on_jax_updates_equals_jax_mesh"] = (
+        bool(agg_ok.all()) and hashlib.sha256(encodings(agg)).hexdigest() == kat["agg_sha256"])
+    port_units = [np.rint(u.double().cpu().numpy() * FP.scale).astype(np.int64)
+                  for u in dryrun.client_updates(kat_mesh)[0]]
+    checks["dryrun_updates_within_a_unit_of_jax"] = all(
+        np.abs(a - np.asarray(b)).max() <= 1 for a, b in zip(port_units, kat["units"]))
+
+    # (e) the scaling table
+    with tempfile.TemporaryDirectory() as out, contextlib.redirect_stdout(io.StringIO()):
+        table = stage("scaling_table", lambda: scaling_table.main(
+            ["--d", str(D), "--parts", "16", "--shards", *MESH_SCALING_SHARDS, "--out",
+             os.path.join(out, "SCALING.md")]))
+    restore_counts(counts)
+    emit({"scaling_table": {k: table[k] for k in ("prove", "verify", "sigma")},
+          "d": D, "parts": 16})
+
+    verify_s, plain_verify_s = seconds["verify_with_mesh"], seconds["verify_without_mesh"]
+    result = {
+        "phase": "mesh", "d": D, "n_partition": L2_CFG.n_partition, "fp": [FP.n_bits, FP.n_frac],
+        "seed": MESH_SEED, "meshes": {"virtual": pmesh.describe(virtual),
+                                      "odd": pmesh.describe(odd), "cards": pmesh.describe(cards)},
+        "metric": "mesh_l2_verify_s_d50000", "value": verify_s,
+        "mesh_l2_verify_s_d50000": verify_s, "l2_verify_without_mesh_s": plain_verify_s,
+        "dryrun": dry, "dryrun_log": lines, **checks, "seconds": seconds,
+        "launches": counts["launches"], "lanes": counts["lanes"]}
+    emit(result)
+    failed = [name for name, ok in checks.items() if not ok]
+    failed += [f"{name} was never launched" for name in MESH_KERNELS
+               if counts["launches"][name] == 0]
+    if failed:
+        sys.exit(f"mesh failed: {failed}")
+    return counts
+
+
+# -- phase 9: the FL runtime: server and clients over the transport ---------------
 
 FL_SEED = 41
 FL_CLIENTS = 4  # num_clients of configs/mnist_range_e2e.yml and mnist_l2_compressed.yml
@@ -2000,7 +2202,7 @@ def phase_fl() -> dict:
     return counts
 
 
-# -- phase 9: the training path: a YAML experiment, trainer services, GrpcTrainer ----
+# -- phase 10: the training path: a YAML experiment, trainer services, GrpcTrainer ----
 
 TRAIN_CONFIG = "configs/mnist_range_e2e.yml"
 LAZY_CONFIG = "configs/mnist_l2_compressed.yml"
@@ -2301,7 +2503,7 @@ def phase_train() -> dict:
     return counts
 
 
-# -- phase 10: the micro-benchmark suite ---------------------------------------
+# -- phase 11: the micro-benchmark suite ---------------------------------------
 
 MICRO_DIM = 32768  # the first of the reference's dims (bench_constants.rs)
 # bench_l2rangeproof draws values up to 1/64 of the clip bound; at range 8
@@ -2364,7 +2566,7 @@ def phase_micro(smi: str) -> dict:
     return counts
 
 
-# -- phase 11: the e2e suite, one process a role ---------------------------------
+# -- phase 12: the e2e suite, one process a role ---------------------------------
 
 E2E_MODES = ("Plain", "Range", "l2Compressed")  # the JAX suite's default modes
 E2E_CONFIG = "configs/example_config.yml"
@@ -2536,7 +2738,8 @@ def main() -> None:
     sigma_counts = phase_sigma(state)
     l2_counts, l2_metric = phase_l2()
     counts_by_path = {"round": round_counts, "sigma": sigma_counts, "l2": l2_counts,
-                      **phase_modes(l2_metric), "fl": phase_fl(), "train": phase_train(),
+                      **phase_modes(l2_metric), "mesh": phase_mesh(), "fl": phase_fl(),
+                      "train": phase_train(),
                       "micro": phase_micro(smi)}
     phase_e2e(smi)
     emit({"phases_s": PHASES.seconds, "total_s": sum(PHASES.seconds.values()),

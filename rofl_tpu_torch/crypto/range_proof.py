@@ -27,8 +27,16 @@ JAX package does on JAX:CPU, so the same seed gives the same proof bytes; on
 the card the keyed-XOF sampler gives other proofs, which verify the same.
 Where the JAX package issues two MSMs in a row that do not depend on each
 other (an IPA round's L and R, the two halves of S), the port issues one
-grouped MSM: the same group elements in half the calls. Not carried: the
-mesh arguments and the ``ROFL_TIMING`` ticks.
+grouped MSM: the same group elements in half the calls.
+
+The mesh arguments (``mesh=None``) route as the JAX package's do: the
+chunk-batched prover's A-term sums and S / IPA L-R MSMs go to
+``parallel.mesh.sharded_tree_sum_groups`` / ``sharded_msm_grouped`` (whole
+chunks a device, no collective; the local call where the groups do not
+divide over the 'param' axis, judged on the port's own group counts, so an
+IPA round's fused L and R count 2G groups), and the verifier's combined MSM
+to ``sharded_msm``. The proof bytes do not depend on which way a group went.
+Not carried: the ``ROFL_TIMING`` ticks.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ import torch
 
 from ..ops import curve, fe, msm, sc
 from ..ops.curve import PointArray
+from ..parallel import mesh as pmesh
 from ..spec import generators as G
 from ..spec import ristretto as SR
 from ..spec import scalar as SS
@@ -330,6 +339,19 @@ def _columns(xs, device) -> torch.Tensor:
     return _consts(xs, device)[:, :, None]
 
 
+def _msm_grouped(points: PointArray, scalars: torch.Tensor, group: int, mesh) -> PointArray:
+    """Per-chunk MSMs, mesh-routed over 'param' when a mesh is given."""
+    if mesh is not None:
+        return pmesh.sharded_msm_grouped(mesh, points, scalars, group)
+    return msm.msm_grouped(points, scalars, group)
+
+
+def _tree_sum_groups(p: PointArray, group: int, mesh) -> PointArray:
+    if mesh is not None:
+        return pmesh.sharded_tree_sum_groups(mesh, p, group)
+    return curve.tree_sum_groups(p, group)
+
+
 def prove_multiple_batch(
     transcripts: list[Transcript],
     values_chunks: np.ndarray,
@@ -337,6 +359,7 @@ def prove_multiple_batch(
     n: int,
     rng: np.random.Generator,
     device="cuda",
+    mesh=None,
 ) -> tuple[list[RangeProof], list[list[bytes]], PointArray]:
     """All chunks of a vector proved in one device flow.
 
@@ -371,7 +394,7 @@ def prove_multiple_batch(
     # A_g = H^a_blind_g + Σ over group g of (bit ? G_i : -H_i)
     a_blind = pedersen.rnd_scalar_tensor(n_groups, rng, device)
     terms = curve.select(bits == 1, gens_G_t, curve.neg(gens_H_t))
-    A_pt = curve.add(pedersen.base_H().mul(a_blind), curve.tree_sum_groups(terms, nm))
+    A_pt = curve.add(pedersen.base_H().mul(a_blind), _tree_sum_groups(terms, nm, mesh))
     del terms
 
     # S_g = H^s_blind_g + <s_L, G> + <s_R, H> per group
@@ -380,7 +403,7 @@ def prove_multiple_batch(
     s_R = pedersen.rnd_scalar_tensor(lanes, rng, device).reshape(16, n_groups, nm)
     bases_GH = _tile_points(_point_concat(gens_G, gens_H), n_groups)
     s_cat = torch.cat([s_L, s_R], dim=2).reshape(16, 2 * lanes)
-    S_pt = curve.add(pedersen.base_H().mul(s_blind), msm.msm_grouped(bases_GH, s_cat, 2 * nm))
+    S_pt = curve.add(pedersen.base_H().mul(s_blind), _msm_grouped(bases_GH, s_cat, 2 * nm, mesh))
     del bases_GH, s_cat
 
     for t, vbs in zip(transcripts, V_chunks):
@@ -449,7 +472,7 @@ def prove_multiple_batch(
     b_vec = sc.add(r0.reshape(16, n_groups, nm), sc.mul(r1.reshape(16, n_groups, nm), x_rep))
 
     ipps = _ipp_create_batch(transcripts, ws, gens_G_t, gens_H_t, a_vec, b_vec, nm,
-                             [_inv(y) for y in ys])
+                             [_inv(y) for y in ys], mesh)
 
     proofs = [RangeProof(AS_bytes[g], AS_bytes[n_groups + g], T_bytes[g], T_bytes[n_groups + g],
                          t_xs[g], t_x_blinds[g], e_blinds[g], ipps[g])
@@ -466,6 +489,7 @@ def _ipp_create_batch(
     b: torch.Tensor,
     n: int,
     y_invs: list[int],
+    mesh=None,
 ) -> list[InnerProductProof]:
     """Chunk-batched InnerProductProof::create: the factored folds of
     ``_ipp_create`` with per-chunk pending scalars, and the w_g·Q term as a
@@ -512,7 +536,7 @@ def _ipp_create_batch(
             torch.cat([sc.mul(a_L, gp_rep), sc.mul(b_R, ypend)], dim=2),
             torch.cat([sc.mul(a_R, gp_rep),
                        sc.mul(b_L, sc.mul(ypend, _columns(yRs, device)))], dim=2)], dim=1)
-        LR_sum = msm.msm_grouped(_pflat(bases), scal.reshape(16, -1), s)
+        LR_sum = _msm_grouped(_pflat(bases), scal.reshape(16, -1), s, mesh)
         LR_pt = curve.add(LR_sum, base_B.mul(sc.mul(c_LR, w_col.repeat(1, 2))))
 
         both = _compress_bytes(LR_pt)
@@ -713,6 +737,7 @@ def verify_multiple_batch(
     n: int,
     rng: np.random.Generator,
     device="cuda",
+    mesh=None,
 ) -> bool:
     """Batched RangeProof::verify_multiple_with_rng over many aggregated
     proofs sharing the same (n, m) generators: the chunks of one vector
@@ -848,8 +873,11 @@ def verify_multiple_batch(
     fixed = curve.pack_points([G.pedersen_B_blinding(), G.pedersen_B()], device)
     all_pts = _point_concat(pts, fixed, gens_G, gens_H)
     all_scalars = torch.cat(cols + [_consts([Bb_scalar, B_scalar], device), g_acc, h_acc], dim=1)
-    total = msm.msm(all_pts, all_scalars)
-    return bool(curve.eq(total, curve.identity((1,), device))[0])
+    if mesh is not None:
+        total = pmesh.sharded_msm(mesh, all_pts, all_scalars)
+    else:
+        total = msm.msm(all_pts, all_scalars)
+    return bool(curve.eq(total, curve.identity((1,), total.device))[0])
 
 
 def verify_multiple(

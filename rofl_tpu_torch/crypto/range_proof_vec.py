@@ -71,12 +71,15 @@ def create_rangeproof(
     n_partition: int,
     rng: np.random.Generator,
     device="cuda",
+    mesh=None,
 ) -> tuple[list[RP.RangeProof], PointArray]:
     """create_rangeproof (mod.rs:16-102) → (proofs, unshifted commitments).
 
     blindings: (16, d) scalar limbs (numpy or a tensor) or a list of ints.
     The commitments come back as points on `device`; the −offset un-shift
-    (mod.rs:95-101) is one batched add."""
+    (mod.rs:95-101) is one batched add. With a mesh, the chunk-batched
+    prover's A/S and IPA L/R MSMs shard whole chunks over the 'param' axis
+    (the proofs are byte-identical)."""
     values_clipped = np.asarray(values_clipped, np.float32)
     d = len(values_clipped)
     if isinstance(blindings, (list, tuple)):
@@ -103,7 +106,7 @@ def create_rangeproof(
         transcripts = [Transcript(b"RangeProof") for _ in range(n_chunks)]
         proofs, _v_chunks, V = RP.prove_multiple_batch(
             transcripts, shifted_ext.reshape(n_chunks, chunk), blind_ext, prove_range, rng,
-            device)
+            device, mesh)
     else:
         proofs, Vs = [], []
         blind_ints = sc.unpack_scalars(blind_ext)
@@ -129,11 +132,13 @@ def verify_rangeproof(
     fp: FpConfig,
     prove_range: int,
     rng: np.random.Generator,
+    mesh=None,
 ) -> bool:
     """verify_rangeproof (mod.rs:149-216) on the device of `commits`. The
     +offset re-shift, identity padding and encoding are batched; all chunks
     verify as one combined MSM (the reference loops verify_multiple per
-    chunk)."""
+    chunk), whose terms shard over the 'param' axis of `mesh` when one is
+    given."""
     device = commits.device
     d = commits.x.shape[1]
     offset = 1 << (prove_range - 1)
@@ -148,4 +153,4 @@ def verify_rangeproof(
     chunk = ext_len // len(proofs)
     items = [(Transcript(b"RangeProof"), proof, all_bytes[c * chunk:(c + 1) * chunk])
              for c, proof in enumerate(proofs)]
-    return RP.verify_multiple_batch(items, prove_range, rng, device)
+    return RP.verify_multiple_batch(items, prove_range, rng, device, mesh)

@@ -208,10 +208,10 @@ def _range_encrypt(plaintext, blindings, cfg: CryptoConfig, rng, device, prove_r
 
 
 def _range_verify(enc_values: ElGamalPairArray, range_proofs, check_percentage: float,
-                  fp: FpConfig, prove_range: int, rng) -> bool:
+                  fp: FpConfig, prove_range: int, rng, mesh) -> bool:
     num = _checked_count(enc_values.L.x.shape[1], check_percentage)
     return RPV.verify_rangeproof(range_proofs, _first_lanes(enc_values.L, num), fp,
-                                 prove_range, rng)
+                                 prove_range, rng, mesh)
 
 
 # -- Plain -------------------------------------------------------------------
@@ -257,13 +257,15 @@ class EncParamsRange:
         return cls(enc_values, rand_proofs, range_proofs, cfg.value_range,
                    cfg.check_percentage, cfg.fp)
 
-    def verify(self, rng: np.random.Generator) -> bool:
+    def verify(self, rng: np.random.Generator, mesh=None) -> bool:
         """Every lane's rand proof (one ``scalar_mul`` launch), then the range
-        proofs against the first ``num`` commitments."""
+        proofs against the first ``num`` commitments. With a mesh only the
+        range proofs' combined MSM is sharded, as in the JAX package; the Σ
+        verify stays whole."""
         if not bool(sigma.rand_proof_verify(self.rand_proofs, self.enc_values).all()):
             return False
         return _range_verify(self.enc_values, self.range_proofs, self.check_percentage, self.fp,
-                             self.prove_range, rng)
+                             self.prove_range, rng, mesh)
 
     def serialize(self) -> bytes:
         return wire.encode_length_delimited(wire.EncRangeData(
@@ -323,14 +325,15 @@ class EncParamsL2:
         return cls(enc_values, square_proofs, range_proofs, square_range_proof,
                    cfg.value_range, cfg.l2_value_range, fp)
 
-    def verify(self, rng: np.random.Generator) -> bool:
+    def verify(self, rng: np.random.Generator, mesh=None) -> bool:
         """params.rs:660-687 on the device of the commitments: the batched
         square-rand verify (one 6N-term MSM), the range proofs (one combined
-        MSM), then the L2 sum proof against Σ c_sq."""
+        MSM, sharded over the 'param' axis of `mesh` when one is given), then
+        the L2 sum proof against Σ c_sq."""
         if not sigma.square_rand_proof_verify_batched(self.square_proofs, self.enc_values, rng):
             return False
         if not RPV.verify_rangeproof(self.range_proofs, self.enc_values.c.L, self.fp,
-                                     self.prove_range, rng):
+                                     self.prove_range, rng, mesh):
             return False
         sum_pt = curve.unpack_points(curve.tree_sum(self.enc_values.c_sq))[0]
         return L2RP.verify_rangeproof_l2(self.square_range_proof, sum_pt, self.l2_prove_range,
@@ -384,13 +387,14 @@ class EncParamsRangeCompressed:
         return cls(enc_values, rand_proof, range_proofs, cfg.value_range,
                    cfg.check_percentage, cfg.fp)
 
-    def verify(self, rng: np.random.Generator) -> bool:
+    def verify(self, rng: np.random.Generator, mesh=None) -> bool:
         """The compressed rand proof (two d-term MSMs), then the range proofs
-        against the first ``num`` commitments."""
+        against the first ``num`` commitments (their combined MSM sharded
+        over `mesh` when one is given)."""
         if not CRP.verify(Transcript(CRP.TRANSCRIPT_LABEL), self.rand_proof, self.enc_values):
             return False
         return _range_verify(self.enc_values, self.range_proofs, self.check_percentage, self.fp,
-                             self.prove_range, rng)
+                             self.prove_range, rng, mesh)
 
     def serialize(self) -> bytes:
         return wire.encode_length_delimited(wire.EncRangeData(
@@ -454,16 +458,17 @@ class EncParamsL2Compressed:
                    rand_proof, range_proofs, square_range_proof, cfg.value_range,
                    cfg.l2_value_range, fp)
 
-    def verify(self, rng: np.random.Generator) -> bool:
+    def verify(self, rng: np.random.Generator, mesh=None) -> bool:
         """The square proofs (one ``scalar_mul`` launch), the compressed rand
-        proof, the range proofs, then the L2 sum proof against Σ c_sq."""
+        proof, the range proofs (their combined MSM sharded over `mesh` when
+        one is given), then the L2 sum proof against Σ c_sq."""
         sq_c = sigma.SquareCommitVec(self.enc_values.c.L, self.enc_values.c_sq)
         if not bool(sigma.square_proof_verify(self.square_proofs, sq_c).all()):
             return False
         if not CRP.verify(Transcript(CRP.TRANSCRIPT_LABEL), self.rand_proof, self.enc_values.c):
             return False
         if not RPV.verify_rangeproof(self.range_proofs, self.enc_values.c.L, self.fp,
-                                     self.prove_range, rng):
+                                     self.prove_range, rng, mesh):
             return False
         sum_pt = curve.unpack_points(curve.tree_sum(self.enc_values.c_sq))[0]
         return L2RP.verify_rangeproof_l2(self.square_range_proof, sum_pt, self.l2_prove_range,
@@ -520,11 +525,15 @@ def deserialize(enc_type: int, data: bytes, fp: FpConfig, device="cuda"):
     return _MODE_CLASSES[enc_type].deserialize(data, fp, device)
 
 
-def verify(params, rng: np.random.Generator) -> bool:
-    """EncModelParams::verify (params.rs:181-291); Plain is trivially true."""
+def verify(params, rng: np.random.Generator, mesh=None) -> bool:
+    """EncModelParams::verify (params.rs:181-291); Plain is trivially true.
+
+    mesh: an optional ``parallel.mesh.Mesh``: the range-proof verification's
+    combined MSM shards its terms over the 'param' axis (the reference's
+    rayon verification pool becomes device parallelism)."""
     if isinstance(params, PlainParams):
         return True
-    return params.verify(rng)
+    return params.verify(rng, mesh)
 
 
 def enc_pairs_of(params) -> ElGamalPairArray | None:

@@ -16,8 +16,10 @@ The JAX server's state machine, step by step (SURVEY.md §3.1):
 The crypto runs on ``ServerConfig.device`` (default ``"cuda"``). Every
 kernel launches on the current stream, which is the same default stream in
 the crypto thread and the verify threads, so a verify never reads a tensor
-that a deserialize has not finished writing. The JAX server's ``mesh`` is not
-carried: one device.
+that a deserialize has not finished writing. With more than one card (and
+the device a card) the server builds ``param_mesh()`` over every card, as the
+JAX server does over its devices, and each verification's range-proof MSM
+shards its terms over it; on one card there is no mesh.
 """
 
 from __future__ import annotations
@@ -28,7 +30,9 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
+from ..parallel.mesh import param_mesh
 from . import params as P
 from . import transport, wire
 from .logs import BenchLogger, TimeState
@@ -103,6 +107,11 @@ class TrainingState:
         self.lock = asyncio.Lock()
         self.verify_pool = ThreadPoolExecutor(cfg.verification_threads)
         self.crypto_pool = ThreadPoolExecutor(1)  # serialize device work
+        # several cards: shard the verification's combined MSM over a 'param'
+        # mesh of all of them (the reference's rayon verify pool becomes
+        # device parallelism)
+        self.mesh = (param_mesh() if torch.device(cfg.device).type == "cuda"
+                     and torch.cuda.device_count() > 1 else None)
         self.bench = BenchLogger(cfg.bench_dir or "", f"server_model{cfg.model_id}") \
             if cfg.bench_dir else BenchLogger("", "server")
         self.rng = np.random.default_rng()
@@ -200,7 +209,7 @@ class TrainingState:
             self.crypto_pool, P.deserialize, self.cfg.enc_type, data, self.cfg.crypto.fp,
             self.cfg.device)
         # verification on the dedicated pool (eager or lazily awaited)
-        fut = loop.run_in_executor(self.verify_pool, P.verify, enc_params, self.rng)
+        fut = loop.run_in_executor(self.verify_pool, P.verify, enc_params, self.rng, self.mesh)
         state.verify_tasks.append(fut)
         async with self.lock:
             ok = await loop.run_in_executor(self.crypto_pool, state.accumulator.accumulate,

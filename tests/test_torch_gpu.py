@@ -527,3 +527,60 @@ def test_jax_random_on_the_card_is_the_cpus(card):
     (_, p_cpu), = list(intrinsic.projection_tiles(64, 1000, 2, "cpu"))
     assert np.max(np.abs(p_card.cpu().numpy() - p_cpu.numpy())
                   / np.spacing(np.abs(p_cpu.numpy()))) <= 4
+
+
+def test_sharded_msm_on_a_virtual_mesh_of_the_card(card):
+    """sharded_msm over cuda:0 four times (300 000 terms split evenly) and
+    three times (50 001 terms: two identity terms of padding) equals msm.msm,
+    encoding for encoding, and launches one msm_flat a shard and one
+    point_sum for the partials."""
+    from rofl_tpu_torch.ops import msm
+    from rofl_tpu_torch.parallel import mesh as pmesh
+
+    rng = np.random.default_rng(14)
+    for n, shards in ((300_000, 4), (50_001, 3)):
+        ks = pedersen.rnd_scalar_tensor(n, rng, card)
+        pts = pedersen.base_B().mul(pedersen.rnd_scalar_tensor(n, rng, card))
+        mesh = pmesh.param_mesh(shards, [torch.device("cuda", 0)] * shards)
+        before = dict(kernels.LAUNCHES)
+        got = pmesh.sharded_msm(mesh, pts, ks)
+        assert kernels.LAUNCHES["msm_flat"] - before["msm_flat"] == shards
+        assert kernels.LAUNCHES["point_sum"] - before["point_sum"] == 1
+        assert got.x.device == torch.device("cuda", 0) and got.x.shape == (16, 1)
+        assert (curve.compress_to_bytes(got) == curve.compress_to_bytes(msm.msm(pts, ks))).all()
+
+
+def test_l2_verify_with_a_virtual_mesh_of_the_card(card):
+    """EncParamsL2 at d = 4096, 16 partitions: verify with a mesh of cuda:0
+    four times accepts the honest update (its range proofs' combined MSM
+    sharded) and refuses one with a flipped range-proof bit; the range proofs
+    made with the mesh are the unsharded ones, byte for byte."""
+    from rofl_tpu_torch.crypto import range_proof as RP
+    from rofl_tpu_torch.crypto import range_proof_vec as RPV
+    from rofl_tpu_torch.crypto.fp_codec import FpConfig
+    from rofl_tpu_torch.parallel import mesh as pmesh
+
+    d, fp = 4096, FpConfig(16, 7)
+    cfg = P.CryptoConfig(value_range=8, n_partition=16, l2_value_range=16, fp=fp,
+                         enc_type=P.ENC_L2_TYPE)
+    rng = np.random.default_rng(15)
+    vals = rng.uniform(-0.01, 0.01, d).astype(np.float32)
+    blind = pedersen.rnd_scalar_tensor(d, rng, card)
+    mesh = pmesh.param_mesh(4, [torch.device("cuda", 0)] * 4)
+    enc = P.EncParamsL2.encrypt(vals, blind, cfg, rng, card)
+    dec = P.EncParamsL2.deserialize(enc.serialize(), fp, card)
+    before = dict(kernels.LAUNCHES)
+    assert dec.verify(rng, mesh)
+    assert kernels.LAUNCHES["msm_flat"] - before["msm_flat"] >= 4
+    raw = bytearray(dec.range_proofs[5].to_bytes())
+    raw[5 * 32] ^= 1
+    bad = P.EncParamsL2(dec.enc_values, dec.square_proofs,
+                        dec.range_proofs[:5] + [RP.RangeProof.from_bytes(bytes(raw))]
+                        + dec.range_proofs[6:], dec.square_range_proof, dec.prove_range,
+                        dec.l2_prove_range, fp)
+    assert not bad.verify(rng, mesh)
+    clipped = RPV.clip_f32_to_range_vec(vals, fp, 8)
+    plain, _ = RPV.create_rangeproof(clipped, blind, fp, 8, 16, np.random.default_rng(3), card)
+    sharded, _ = RPV.create_rangeproof(clipped, blind, fp, 8, 16, np.random.default_rng(3),
+                                       card, mesh)
+    assert [p.to_bytes() for p in plain] == [p.to_bytes() for p in sharded]
