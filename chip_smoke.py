@@ -5,7 +5,7 @@ path (prove → wire → per-lane verify), the L2-norm client round
 modes (encrypt → wire → verify → accumulate → extract), the device mesh
 (the sharded data plane, the mesh-routed provers and verifiers, the
 multi-device dry run and the scaling table), the FL runtime
-(a server and four clients over the TCP transport) at full width, the
+(a server and four clients over gRPC) at full width, the
 training path (a YAML experiment with trainer services on the card), the
 micro-benchmark suite, and the e2e suite with every role in its own process.
 
@@ -19,7 +19,8 @@ line is ``{"ok": true, "device": {...}}``.
 
 Phases:
   device   the card's name and power limit, torch and CUDA versions, and
-           whether grpc, google.protobuf and yaml could be imported there
+           whether grpc, google.protobuf and yaml could be imported there;
+           fails without grpc, the FL runtime's transport
   build    nvcc builds the kernels of the fifteen wrappers from the fourteen
            sources in rofl_tpu_torch/csrc (in parallel) and reports ptxas'
            registers, spill bytes and shared memory for each entry point
@@ -117,7 +118,7 @@ Phases:
            run, not the unsharded calls they are held against.
   fl       the FL runtime end to end: one server (``fl.server``: TrainingState,
            make_server) and 4 ``FlServiceClient``s and an ``FLObserver`` in
-           one event loop over the port's TCP transport on 127.0.0.1 (an
+           one event loop over gRPC (``fl/transport.py``) on 127.0.0.1 (an
            ephemeral port); EncL2, 16 partitions, value range 8, L2 range 16,
            check_percentage 1.0, FpConfig(16, 7), 1 round (cut from 2), eager
            verification on one thread, the clients' encrypts one at a time
@@ -143,7 +144,7 @@ Phases:
            to 1 (2 before), four ``TorchTrainService``s (client i trains
            ``mnist_dev_intrinsic`` on shard i at the CLI's defaults: lr 0.1,
            batch 32, one epoch; θ = θ0 + P·z, D = 19 090) reached by four
-           clients through ``GrpcTrainer`` over the transport, zero
+           clients through ``GrpcTrainer`` over gRPC, zero
            blindings as ``cli clients``, eager verification on the CLI's 4
            threads, an observer that evaluates with a ``Trainer``; every
            update finite and nonzero, each extracted sum the clients'
@@ -206,6 +207,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import hashlib
+import importlib.metadata
 import importlib.util
 import io
 import json
@@ -563,11 +565,18 @@ def phase_device() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
-    # the JAX package's runtime needs these three; the port needs none of them
+    # The FL runtime speaks gRPC (fl/transport.py imports grpc), and the port
+    # has no other transport: without grpc the run fails, here if not at this
+    # script's imports. The JAX package's runtime needs the other two too;
+    # the port needs neither.
     found = {name: importlib.util.find_spec(name) is not None
              for name in ("grpc", "google.protobuf", "yaml")}
     emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "python": sys.version.split()[0], "importable": found})
+          "cuda": torch.version.cuda, "python": sys.version.split()[0], "importable": found,
+          "transport": "grpc",
+          "grpcio": importlib.metadata.version("grpcio") if found["grpc"] else None})
+    if not found["grpc"]:
+        sys.exit("device failed: grpc does not import, and the FL runtime's transport needs it")
     return smi
 
 
@@ -2030,7 +2039,7 @@ def phase_mesh() -> dict:
     return counts
 
 
-# -- phase 9: the FL runtime: server and clients over the transport ---------------
+# -- phase 9: the FL runtime: server and clients over gRPC -------------------------
 
 FL_SEED = 41
 FL_CLIENTS = 4  # num_clients of configs/mnist_range_e2e.yml and mnist_l2_compressed.yml
@@ -2080,7 +2089,7 @@ def fl_config(initial: np.ndarray, rounds: int) -> ServerConfig:
 
 async def fl_run(initial: np.ndarray, rounds: int, rng: np.random.Generator, tampered=()):
     """One server, FL_CLIENTS clients and an observer in this event loop,
-    over the transport on 127.0.0.1; until the server is done or has
+    over gRPC on 127.0.0.1; until the server is done or has
     failed. Returns (state, clients, trainers, seen, broadcast times)."""
     # The four clients share this interpreter, and every launch releases the
     # GIL: four encrypts at once on the card took 55-57 s each, against
@@ -2177,7 +2186,8 @@ def phase_fl() -> dict:
     rounds = sorted(state.rounds, key=lambda s: s.round_id)
     result = {
         "phase": "fl", "d": D, "clients": FL_CLIENTS, "rounds": FL_ROUNDS, "enc_type": "EncL2",
-        "transport": "tcp 127.0.0.1", "model": FL_MODEL, "fp": [FP.n_bits, FP.n_frac],
+        "transport": "grpc", "address": "127.0.0.1", "model": FL_MODEL,
+        "fp": [FP.n_bits, FP.n_frac],
         "n_partition": 16, "value_range": 8, "l2_value_range": 16, "check_percentage": 1.0,
         "verification": "eager, 1 thread", "seed": FL_SEED,
         "fl_round_s_d50000": [b - a for a, b in zip(marks, marks[1:])],

@@ -11,8 +11,9 @@ torch versions).
   python -m rofl_tpu_torch.cli observer -a 127.0.0.1 -p 50051 [--model mnist_dev]
   python -m rofl_tpu_torch.cli test-train -p 50016
 
-The calls go over the port's transport (``fl/transport.py``), so these
-commands talk to each other and not to the JAX package's.
+The calls go over gRPC (``fl/transport.py``), so each of these commands
+talks to the JAX package's as to its own: a JAX server, trainer service or
+client can take the place of a port one.
 """
 
 from __future__ import annotations

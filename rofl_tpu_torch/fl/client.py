@@ -1,5 +1,6 @@
 """FL client runtime — counterpart of ``rofl_tpu.fl.client`` (rebuild of
-client.rs FlServiceClient), over the port's transport (``fl/transport.py``).
+client.rs FlServiceClient), over ``grpc.aio`` (``fl/transport.py``): it reaches
+a port server or the JAX package's.
 
 Protocol loop (client.rs:194-305): register → receive Config → receive the
 chunked global model → train locally (trainer bridge) → encrypt + prove on
@@ -72,7 +73,7 @@ class FlServiceClient:
     async def _send_all(call: transport.Call, outgoing: asyncio.Queue):
         while (msg := await outgoing.get()) is not None:
             await call.send(msg)
-        call.done_writing()
+        await call.done_writing()
 
     async def _receive_all(self, call: transport.Call, outgoing: asyncio.Queue):
         storage = DataBlockStorage()

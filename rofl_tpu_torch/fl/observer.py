@@ -1,5 +1,6 @@
 """Training observer — counterpart of ``rofl_tpu.fl.observer`` (rebuild of
-observer.py FLClientTrainObserver), over the port's transport.
+observer.py FLClientTrainObserver), over ``grpc.aio`` (``fl/transport.py``):
+it follows a port server or the JAX package's.
 
 Calls ObserverModelTraining, reassembles each broadcast global model and
 evaluates it, logging "[EVAL] (round, loss, acc)" (observer.py:45-84); with
@@ -31,7 +32,7 @@ class FLObserver:
         """Follow the broadcasts until the server's done_message."""
         async with transport.open_call(self.address, transport.OBSERVER_MODEL_TRAINING) as call:
             await call.send(wire.ModelSelection(model_id=self.model_id))
-            call.done_writing()
+            await call.done_writing()
             logger.info("observing model %d at %s", self.model_id, self.address)
             storage = DataBlockStorage()
             async for resp in call.responses(wire.TrainResponse):

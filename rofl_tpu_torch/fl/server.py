@@ -1,6 +1,7 @@
 """Secure-aggregation FL server — counterpart of ``rofl_tpu.fl.server``
-(rebuild of rofl_service server.rs), over the port's own transport
-(``fl/transport.py``) in place of ``grpc.aio``.
+(rebuild of rofl_service server.rs), over ``grpc.aio`` (``fl/transport.py``),
+so that the JAX package's clients and observers reach it as they reach the
+JAX server.
 
 The JAX server's state machine, step by step (SURVEY.md §3.1):
 
@@ -264,7 +265,8 @@ class TrainingState:
 
 
 class FlServiceServicer:
-    """The three calls of flservice.Flservice (``transport.Server`` serves them)."""
+    """The three calls of flservice.Flservice (``transport.Server`` serves them
+    over gRPC)."""
 
     def __init__(self, states: dict[int, TrainingState]):
         self.states = states

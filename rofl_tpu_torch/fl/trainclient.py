@@ -5,7 +5,7 @@ The FL client delegates local training to a trainer: ``DummyTrainer`` (a
 constant 0.001 update, trainclient.rs:28-30, for cluster-free runs),
 ``InProcessTrainer``, which wraps a local trainer object with
 ``set_weights`` / ``train`` semantics, or ``GrpcTrainer``, a trainer service
-(``fl/trainservice.py``) reached over the port's transport.
+(``fl/trainservice.py``, or the JAX package's) reached over ``grpc.aio``.
 """
 
 from __future__ import annotations
@@ -43,13 +43,14 @@ class InProcessTrainer:
 
 
 class GrpcTrainer:
-    """A trainer service's ``TrainForRound`` (trainclient.rs:31-58, 77-176),
-    by its JAX name, over the port's transport rather than gRPC: it sends a
-    config message, a meta message (model_id, round_id, num_blocks,
+    """A trainer service's ``TrainForRound`` (trainclient.rs:31-58, 77-176)
+    over gRPC, with the channel's default limits as the JAX client has: it
+    sends a config message, a meta message (model_id, round_id, num_blocks,
     num_floats) and the model in blocks of ``NUM_FLOATS_PACKET`` floats, and
     reassembles the update from the answer's meta message and blocks. A call
-    that fails to connect, breaks off, or ends before ``num_floats`` floats is
-    tried again after ``retry_s`` seconds (5, as in the reference), forever."""
+    that fails (``transport.RpcError``: nothing listens, the service raised),
+    breaks off, or ends before ``num_floats`` floats is tried again after
+    ``retry_s`` seconds (5, as in the reference), forever."""
 
     retry_s = 5.0
 
@@ -60,7 +61,7 @@ class GrpcTrainer:
         while True:
             try:
                 return await self._attempt(config, model, round_id)
-            except (ConnectionError, OSError, transport.FrameError) as e:
+            except (transport.RpcError, ConnectionError, OSError) as e:
                 logger.warning("trainer unavailable (%s); retrying in %gs", e, self.retry_s)
                 await asyncio.sleep(self.retry_s)
 
@@ -76,7 +77,7 @@ class GrpcTrainer:
                 await call.send(wire.ClientModelMessage(model_block=wire.FloatBlock(
                     block_number=b,
                     floats=model[b * NUM_FLOATS_PACKET:(b + 1) * NUM_FLOATS_PACKET].tolist())))
-            call.done_writing()
+            await call.done_writing()
             floats: list[float] = []
             expected = None
             async for resp in call.responses(wire.ClientModelMessage):

@@ -1,7 +1,10 @@
 """The trainer service — counterpart of ``rofl_tpu.fl.trainservice``
-(rebuild of rofl_train_client service.py), over the port's transport.
+(rebuild of rofl_train_client service.py), over ``grpc.aio``
+(``fl/transport.py``), with gRPC's default message limits as the JAX
+service has.
 
-Serves ``FLClientTrainService.TrainForRound`` (``transport.TRAIN_FOR_ROUND``):
+Serves ``FLClientTrainService.TrainForRound`` (``transport.TRAIN_FOR_ROUND``)
+to a port or JAX ``GrpcTrainer``, and answers any other call ``UNIMPLEMENTED``:
 collect the model's float blocks, train for the round, stream back the
 update (service.py:46-80). ``TorchTrainService`` trains with the port's
 ``models.trainer.Trainer``; ``DummyTrainService`` (a constant 0.001 update)

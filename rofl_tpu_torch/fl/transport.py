@@ -1,163 +1,135 @@
 """The FL service's transport: the calls of ``flservice.Flservice`` and of
-``flservice.FLClientTrainService`` over asyncio TCP streams, in place of the
-JAX package's ``grpc.aio``.
+``flservice.FLClientTrainService`` over ``grpc.aio``, as the JAX package
+makes them, so that JAX and port peers reach each other.
 
-Each call is one TCP connection. Its first frame names the method by its
-gRPC path (``TRAIN_MODEL``, ``TERMINATE_MODEL_TRAINING``,
-``OBSERVER_MODEL_TRAINING``, ``TRAIN_FOR_ROUND``); the frames after it carry
-one message each. A frame is a varint length and the bytes: the length
-prefix of ``wire.encode_length_delimited``, around the payload the JAX
-package puts inside its gRPC frames, byte for byte. So a JAX client cannot
-reach a port server: only the framing differs, but it differs. A frame above
-64 MiB is refused on both ends (``FrameError``), as the JAX channel's
-``max_*_message_length`` refuses it. The client ends its request stream by
-closing its side for writing (``Call.done_writing``); the server closes the
-connection when the call's responses end (``TrainModel`` after a
-``done_message``).
+A message crosses the wire as the bytes of ``wire.*.to_bytes``, which are the
+JAX package's protobuf bytes, byte for byte; ``grpc``'s generic handlers take
+them as the serializers, so the port needs no ``google.protobuf``. Each call
+runs on a channel of its own (one HTTP/2 connection), opened by
+``open_call`` and closed when the call's block ends.
 
-One ``Server`` serves any servicer: it dispatches a call by its path to the
-servicer's method of that name (``METHODS``), and answers only the paths
-whose method the servicer has. The FL server's servicer has the three
-``Flservice`` methods, a trainer service (``fl/trainservice.py``) has
-``TrainForRound``; each listens on its own address, as in the JAX package.
+Message limits are the JAX package's: a server of ``flservice.Flservice``
+sends and receives up to 64 MiB (``rofl_tpu/fl/server.py:369-372``), a
+trainer server keeps gRPC's defaults (``trainservice.py:94``); on the
+channel, a client's ``TrainModel`` 64 MiB both ways (``client.py:54-57``), an
+observer 64 MiB received (``observer.py:30-32``), ``GrpcTrainer`` the
+defaults (``trainclient.py:63``).
 
-Errors propagate: a connection cut inside a frame, a frame too large or a
-call that ends before its response raises at the caller. On the server a
-call that fails, or names a method the servicer lacks, is logged and its
-connection closed; the server goes on serving the other calls, as a gRPC
-server does.
+One ``Server`` serves any servicer: a path of ``METHODS`` whose method the
+servicer has goes to that method; any other path is answered
+``UNIMPLEMENTED``. The FL server's servicer has the three ``Flservice``
+methods, a trainer service (``fl/trainservice.py``) has ``TrainForRound``;
+each listens on its own address, as in the JAX package.
+
+Errors propagate: a call that fails raises ``RpcError`` at the caller, with
+the status gRPC gave it (``UNAVAILABLE`` where nothing listens,
+``RESOURCE_EXHAUSTED`` above a limit). A servicer method that raises ends its
+call with a gRPC error status, and the server goes on serving the other
+calls.
 """
 
 from __future__ import annotations
 
-import asyncio
 import contextlib
 import logging
+
+import grpc
 
 from . import wire
 
 logger = logging.getLogger("rofl_tpu_torch.transport")
 
-MAX_FRAME = 64 << 20  # grpc.max_{send,receive}_message_length (server.py:369-372)
-TRAIN_MODEL = "/flservice.Flservice/TrainModel"
-TERMINATE_MODEL_TRAINING = "/flservice.Flservice/TerminateModelTraining"
-OBSERVER_MODEL_TRAINING = "/flservice.Flservice/ObserverModelTraining"
-TRAIN_FOR_ROUND = "/flservice.FLClientTrainService/TrainForRound"
+RpcError = grpc.aio.AioRpcError
+MAX_MESSAGE = 64 << 20
+_RECEIVE = ("grpc.max_receive_message_length", MAX_MESSAGE)
+_SEND = ("grpc.max_send_message_length", MAX_MESSAGE)
+FL_SERVICE = "flservice.Flservice"
+TRAIN_SERVICE = "flservice.FLClientTrainService"
+SERVER_OPTIONS = {FL_SERVICE: [_RECEIVE, _SEND], TRAIN_SERVICE: []}
+TRAIN_MODEL = f"/{FL_SERVICE}/TrainModel"
+TERMINATE_MODEL_TRAINING = f"/{FL_SERVICE}/TerminateModelTraining"
+OBSERVER_MODEL_TRAINING = f"/{FL_SERVICE}/ObserverModelTraining"
+TRAIN_FOR_ROUND = f"/{TRAIN_SERVICE}/TrainForRound"
 # path → (servicer method, request message, whether the requests stream,
-# whether the responses stream)
+# whether the responses stream, the caller's channel options)
 METHODS = {
-    TRAIN_MODEL: ("TrainModel", wire.TrainRequest, True, True),
-    OBSERVER_MODEL_TRAINING: ("ObserverModelTraining", wire.ModelSelection, False, True),
-    TERMINATE_MODEL_TRAINING: ("TerminateModelTraining", wire.ModelSelection, False, False),
-    TRAIN_FOR_ROUND: ("TrainForRound", wire.ClientModelMessage, True, True),
+    TRAIN_MODEL: ("TrainModel", wire.TrainRequest, True, True, [_RECEIVE, _SEND]),
+    OBSERVER_MODEL_TRAINING: ("ObserverModelTraining", wire.ModelSelection, False, True,
+                              [_RECEIVE]),
+    TERMINATE_MODEL_TRAINING: ("TerminateModelTraining", wire.ModelSelection, False, False,
+                               []),
+    TRAIN_FOR_ROUND: ("TrainForRound", wire.ClientModelMessage, True, True, []),
 }
 
 
-class FrameError(ValueError):
-    """A frame the transport refuses: above ``MAX_FRAME``, or a length that
-    does not end."""
-
-
-def parse_address(address: str) -> tuple[str, int]:
-    """``host:port`` (``[::]:50051``, ``127.0.0.1:0``) → (host, port)."""
-    host, sep, port = address.rpartition(":")
-    if not sep or not port.isdigit():
-        raise ValueError(f"address {address!r} is not host:port")
-    return host.strip("[]"), int(port)
-
-
-async def read_frame(reader: asyncio.StreamReader) -> bytes | None:
-    """The next frame's bytes; None where the stream ends before a frame."""
-    n = shift = 0
-    while True:
-        byte = await reader.read(1)
-        if not byte:
-            if shift == 0:
-                return None
-            raise ConnectionError("stream ended inside a frame's length")
-        n |= (byte[0] & 0x7F) << shift
-        shift += 7
-        if not byte[0] & 0x80:
-            break
-        if shift > 63:
-            raise FrameError("overlong frame length")
-    if n > MAX_FRAME:
-        raise FrameError(f"frame of {n} bytes is above the limit of {MAX_FRAME}")
-    try:
-        return await reader.readexactly(n)
-    except asyncio.IncompleteReadError as e:
-        raise ConnectionError(f"stream ended {len(e.partial)} bytes into a frame of {n}") from e
-
-
-async def write_frame(writer: asyncio.StreamWriter, payload: bytes) -> None:
-    if len(payload) > MAX_FRAME:
-        raise FrameError(f"frame of {len(payload)} bytes is above the limit of {MAX_FRAME}")
-    writer.write(wire.encode_varint(len(payload)))
-    writer.write(payload)
-    await writer.drain()
-
-
-async def read_messages(reader: asyncio.StreamReader, cls):
-    """The frames of `reader` as `cls` messages, until the stream ends."""
-    while (frame := await read_frame(reader)) is not None:
-        yield cls.from_bytes(frame)
-
-
-async def read_message(reader: asyncio.StreamReader, cls):
-    """The one message of a unary call's side."""
-    frame = await read_frame(reader)
-    if frame is None:
-        raise ConnectionError("the call ended without its message")
-    return cls.from_bytes(frame)
-
-
-async def _close(writer: asyncio.StreamWriter) -> None:
-    writer.close()
-    # The peer may already have reset a connection whose messages were all
-    # read; closing it then is not a fault of the call.
-    with contextlib.suppress(ConnectionError):
-        await writer.wait_closed()
+def _serialize(msg) -> bytes:
+    return msg.to_bytes()
 
 
 # -- client ------------------------------------------------------------------------
 
 
 class Call:
-    """The client's end of one call."""
+    """The client's end of one call. A call whose requests stream starts at
+    once and takes each ``send``; a call of one request starts at its
+    ``send``."""
 
-    def __init__(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter):
-        self.reader = reader
-        self.writer = writer
+    def __init__(self, channel: grpc.aio.Channel, method: str):
+        _, _, stream_in, stream_out, _ = METHODS[method]
+        kind = {(True, True): channel.stream_stream, (False, True): channel.unary_stream,
+                (False, False): channel.unary_unary}[stream_in, stream_out]
+        self._start = kind(method, request_serializer=_serialize)
+        self._stream_in = stream_in
+        self._call = self._start() if stream_in else None
 
     async def send(self, msg) -> None:
-        await write_frame(self.writer, msg.to_bytes())
+        if self._stream_in:
+            await self._call.write(msg)
+        else:
+            self._call = self._start(msg)
 
-    def done_writing(self) -> None:
-        """End the request stream (the server reads EOF)."""
-        self.writer.write_eof()
+    async def done_writing(self) -> None:
+        """End the request stream (a call of one request has ended it)."""
+        if self._stream_in:
+            await self._call.done_writing()
 
-    def responses(self, cls):
-        """The call's responses as `cls` messages, until the server closes."""
-        return read_messages(self.reader, cls)
+    async def responses(self, cls):
+        """The call's responses as `cls` messages, until the server ends it."""
+        async for data in self._call:
+            yield cls.from_bytes(data)
 
     async def response(self, cls):
         """The one response of a unary call."""
-        return await read_message(self.reader, cls)
+        return cls.from_bytes(await self._call)
 
 
 @contextlib.asynccontextmanager
 async def open_call(address: str, method: str):
-    """Connect to `address` and start a call of `method`."""
-    host, port = parse_address(address)
-    reader, writer = await asyncio.open_connection(host, port)
-    try:
-        await write_frame(writer, method.encode())
-        yield Call(reader, writer)
-    finally:
-        await _close(writer)
+    """A channel to `address` with the options of `method`'s caller, and a
+    call of `method` on it; the channel closes when the block ends."""
+    async with grpc.aio.insecure_channel(address, options=METHODS[method][4]) as channel:
+        yield Call(channel, method)
 
 
 # -- server --------------------------------------------------------------------------
+
+
+def _handler(method, request_cls, stream_in: bool, stream_out: bool):
+    """`method` as gRPC's handler. grpc.aio takes a handler as streaming only
+    where it is itself an async generator function."""
+    if stream_out:
+        async def handle(request, context):
+            async with contextlib.aclosing(method(request)) as responses:
+                async for msg in responses:
+                    yield msg
+    else:
+        async def handle(request, context):
+            return await method(request)
+    kind = {(True, True): grpc.stream_stream_rpc_method_handler,
+            (False, True): grpc.unary_stream_rpc_method_handler,
+            (False, False): grpc.unary_unary_rpc_method_handler}[stream_in, stream_out]
+    return kind(handle, request_deserializer=request_cls.from_bytes,
+                response_serializer=_serialize)
 
 
 class Server:
@@ -172,54 +144,25 @@ class Server:
         self.servicer = servicer
         self.address = address
         self.port: int | None = None
-        self._server: asyncio.Server | None = None
-        self._calls: set[asyncio.Task] = set()
+        self._server: grpc.aio.Server | None = None
 
     async def start(self) -> None:
-        host, port = parse_address(self.address)
-        self._server = await asyncio.start_server(self._serve_call, host or None, port)
-        self.port = self._server.sockets[0].getsockname()[1]
-        logger.info("serving on %s (port %d)", self.address, self.port)
+        services: dict[str, dict] = {}
+        for path, (name, request_cls, stream_in, stream_out, _) in METHODS.items():
+            method = getattr(self.servicer, name, None)
+            if method is not None:
+                service = path.split("/")[1]
+                services.setdefault(service, {})[name] = _handler(method, request_cls,
+                                                                  stream_in, stream_out)
+        self._server = grpc.aio.server(
+            options=[o for service in services for o in SERVER_OPTIONS[service]])
+        self._server.add_generic_rpc_handlers(tuple(
+            grpc.method_handlers_generic_handler(service, handlers)
+            for service, handlers in services.items()))
+        self.port = self._server.add_insecure_port(self.address)
+        await self._server.start()
+        logger.info("serving %s on %s (port %d)", sorted(services), self.address, self.port)
 
     async def stop(self, grace: float | None = None) -> None:
         """Stop listening, give running calls `grace` seconds, then cancel them."""
-        self._server.close()
-        if self._calls and grace:
-            await asyncio.wait(list(self._calls), timeout=grace)
-        for task in list(self._calls):
-            task.cancel()
-        await asyncio.gather(*self._calls, return_exceptions=True)
-        await self._server.wait_closed()
-
-    async def _serve_call(self, reader: asyncio.StreamReader,
-                          writer: asyncio.StreamWriter) -> None:
-        task = asyncio.current_task()
-        self._calls.add(task)
-        method = None
-        try:
-            frame = await read_frame(reader)
-            method = None if frame is None else frame.decode()
-            name, request_cls, stream_in, stream_out = METHODS.get(method, (None,) * 4)
-            handler = getattr(self.servicer, name, None) if name else None
-            if handler is None:
-                logger.error("unknown method %r", method)
-                return
-            request = (read_messages(reader, request_cls) if stream_in
-                       else await read_message(reader, request_cls))
-            if stream_out:
-                await self._stream(writer, handler(request))
-            else:
-                await write_frame(writer, (await handler(request)).to_bytes())
-        except Exception:  # one failed call ends its connection, not the server
-            logger.exception("call %s failed", method)
-        finally:
-            self._calls.discard(task)
-            await _close(writer)
-
-    @staticmethod
-    async def _stream(writer: asyncio.StreamWriter, responses) -> None:
-        async with contextlib.aclosing(responses):
-            async for msg in responses:
-                await write_frame(writer, msg.to_bytes())
-
-
+        await self._server.stop(grace)

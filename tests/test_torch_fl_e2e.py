@@ -1,5 +1,5 @@
 """An encrypted FL round of the port end to end on the CPU: server and
-clients over the port's transport, the port's counterparts of
+clients over gRPC, the port's counterparts of
 ``tests/test_fl_e2e.py``'s EncRange round and tampered upload.
 
 EncRange, 2 clients, d = 4, value range 8, one partition, ``FpConfig(16, 7)``,

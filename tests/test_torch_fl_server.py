@@ -1,6 +1,6 @@
 """The port's FL runtime (``rofl_tpu_torch.fl.{server,client,observer,
 transport}``) against the JAX package's (``rofl_tpu.fl.{server,client}``),
-cheap: Plain mode on the CPU, over the port's transport on 127.0.0.1.
+cheap: Plain mode on the CPU, over gRPC on 127.0.0.1.
 
 - The server's ``Config`` response and its model frames for a seeded global
   model of 300 000 floats (two 1 MiB blocks) are byte-equal to the JAX
@@ -12,13 +12,15 @@ cheap: Plain mode on the CPU, over the port's transport on 127.0.0.1.
 - A late registration gets ``LATE`` and its stream ends; an observer sees
   every broadcast and ``DONE``; ``TerminateModelTraining`` answers ``OK`` /
   ``NOK``; a stale-round upload is dropped.
-- The transport refuses frames above 64 MiB, raises on a cut frame, and a
-  client whose call ends before ``DONE`` raises.
+- The server refuses a message above 64 MiB (``RESOURCE_EXHAUSTED``), and
+  the client one it would send; a path the servicer lacks is
+  ``UNIMPLEMENTED``; a client whose call ends before ``DONE`` raises.
 Tolerance: none (the model in float32, bit for bit)."""
 
 import asyncio
 import dataclasses
 
+import grpc
 import numpy as np
 import pytest
 
@@ -149,7 +151,7 @@ def test_a_late_registration_gets_late_and_its_stream_ends():
             async with transport.open_call(address, transport.TRAIN_MODEL) as call:
                 await call.send(wire.TrainRequest(start_message=wire.WorkerRegisterMessage(
                     model_id=1, client_id=99)))
-                call.done_writing()
+                await call.done_writing()
                 got = [r async for r in call.responses(wire.TrainResponse)]
             return state.status, got
         finally:
@@ -191,7 +193,7 @@ def test_terminate_answers_ok_and_nok():
                 async with transport.open_call(address,
                                                transport.TERMINATE_MODEL_TRAINING) as call:
                     await call.send(wire.ModelSelection(model_id=model_id))
-                    call.done_writing()
+                    await call.done_writing()
                     out.append(await call.response(wire.StatusMessage))
             trainer.go.set()
             await asyncio.wait_for(task, 30)
@@ -275,47 +277,121 @@ def test_a_stale_round_upload_is_dropped():
     np.testing.assert_allclose(state.global_model, np.full(11, 0.001, np.float32), atol=1e-7)
 
 
-def test_the_transport_refuses_large_and_cut_frames_and_bad_addresses():
-    async def read(data: bytes):
-        reader = asyncio.StreamReader()
-        reader.feed_data(data)
-        reader.feed_eof()
-        return await transport.read_frame(reader)
+def selection_of(size: int) -> bytes:
+    """A ModelSelection of model_id 1 and `size` bytes in all: an unknown
+    length-delimited field (15) pads it, which the port's parser skips, as
+    protobuf's does."""
+    head = wire.encode_varint(1 << 3) + wire.encode_varint(1)
+    pad = size - len(head) - 1
+    pad -= len(wire.encode_varint(pad))
+    data = head + wire.encode_varint(15 << 3 | 2) + wire.encode_varint(pad) + bytes(pad)
+    assert len(data) == size and wire.ModelSelection.from_bytes(data).model_id == 1
+    return data
 
-    assert asyncio.run(read(b"")) is None
-    assert asyncio.run(read(b"\x00")) == b""
-    assert asyncio.run(read(b"\x03abc")) == b"abc"
-    limit = wire.encode_varint(transport.MAX_FRAME)
-    with pytest.raises(ConnectionError):  # the limit itself is taken; this one is cut
-        asyncio.run(read(limit + b"x"))
-    with pytest.raises(ValueError):
-        asyncio.run(read(wire.encode_varint(transport.MAX_FRAME + 1)))
-    for cut in (b"\x80", b"\x05ab"):
-        with pytest.raises(ConnectionError):
-            asyncio.run(read(cut))
 
-    class Writer:
-        def write(self, data):
-            raise AssertionError("nothing is written")
+def test_a_message_above_64_mib_is_refused_with_resource_exhausted():
+    """The server's receive limit is the JAX server's 64 MiB: a request of
+    exactly 64 MiB is answered, one byte more is refused RESOURCE_EXHAUSTED,
+    unary or streamed. The port's client has the JAX client's send limit
+    too: it refuses to send such a request itself (grpc.aio's write fails in
+    the core, INTERNAL, where the server would have said
+    RESOURCE_EXHAUSTED)."""
+    big = wire.TrainRequest(params=wire.ModelParameters(
+        param_block=wire.DataBlock(data=bytes(transport.MAX_MESSAGE))))
 
-    with pytest.raises(ValueError):
-        asyncio.run(transport.write_frame(Writer(), bytes(transport.MAX_FRAME + 1)))
-    assert transport.parse_address("[::]:50051") == ("::", 50051)
-    assert transport.parse_address("127.0.0.1:0") == ("127.0.0.1", 0)
-    for bad in ("localhost", "host:", "host:x"):
-        with pytest.raises(ValueError):
-            transport.parse_address(bad)
+    async def main():
+        state, server, address = await serve(plain_cfg())
+        try:
+            async with grpc.aio.insecure_channel(
+                    address, options=[("grpc.max_send_message_length", -1)]) as channel:
+                terminate = channel.unary_unary(transport.TERMINATE_MODEL_TRAINING)
+                at_limit = wire.StatusMessage.from_bytes(
+                    await terminate(selection_of(transport.MAX_MESSAGE)))
+                with pytest.raises(grpc.aio.AioRpcError) as unary:
+                    await terminate(selection_of(transport.MAX_MESSAGE + 1))
+                stream = channel.stream_stream(transport.TRAIN_MODEL)()
+                await stream.write(big.to_bytes())
+                with pytest.raises(grpc.aio.AioRpcError) as streamed:
+                    await stream.read()
+            async with transport.open_call(address, transport.TRAIN_MODEL) as call:
+                with pytest.raises(transport.RpcError) as sent:
+                    await call.send(big)
+            return at_limit, unary.value, streamed.value, sent.value, state.client_queues
+        finally:
+            await stop(state, server)
+
+    at_limit, unary, streamed, sent, registered = asyncio.run(main())
+    assert len(big.to_bytes()) > transport.MAX_MESSAGE
+    assert at_limit.status == wire.STATUS_OK
+    assert unary.code() == streamed.code() == grpc.StatusCode.RESOURCE_EXHAUSTED
+    assert sent.code() == grpc.StatusCode.INTERNAL and not registered
+
+
+def test_a_path_the_servicer_lacks_is_unimplemented():
+    """The FL server serves the three Flservice calls and nothing else:
+    TrainForRound (a trainer server's call) and an unknown method of
+    Flservice are answered UNIMPLEMENTED, and the server goes on serving."""
+    async def main():
+        state, server, address = await serve(plain_cfg(num_clients=1, num_rounds=1))
+        try:
+            async with transport.open_call(address, transport.TRAIN_FOR_ROUND) as call:
+                await call.send(wire.ClientModelMessage(config=wire.ModelConfig()))
+                await call.done_writing()
+                with pytest.raises(transport.RpcError) as train:
+                    await anext(call.responses(wire.ClientModelMessage))
+            async with grpc.aio.insecure_channel(address) as channel:
+                with pytest.raises(grpc.aio.AioRpcError) as unknown:
+                    await channel.unary_unary("/flservice.Flservice/Nope")(b"")
+            client = FlServiceClient(address, 1, 0, DummyTrainer(), device="cpu")
+            await asyncio.wait_for(client.train_model(), 30)
+            return train.value, unknown.value, client
+        finally:
+            await stop(state, server)
+
+    train, unknown, client = asyncio.run(main())
+    assert train.code() == grpc.StatusCode.UNIMPLEMENTED
+    assert unknown.code() == grpc.StatusCode.UNIMPLEMENTED
+    assert client.done_status == wire.STATUS_DONE
+
+
+class EndsAtOnce:
+    """A servicer whose calls end, cleanly, before DONE."""
+
+    async def TrainModel(self, requests):
+        async for _ in requests:
+            return
+        yield  # an async generator, as grpc.aio needs for a streamed answer
+
+    async def ObserverModelTraining(self, request):
+        return
+        yield
 
 
 def test_a_client_whose_call_ends_before_done_raises():
+    """A call cut by the server's stop raises the RPC's error (UNAVAILABLE);
+    a call the server ends cleanly before DONE raises ConnectionError, for a
+    client and for an observer."""
     async def main():
         state, server, address = await serve(plain_cfg(num_clients=2))
         client = asyncio.create_task(FlServiceClient(address, 1, 0, DummyTrainer(),
                                                      device="cpu").train_model())
         while not state.client_queues:
             await asyncio.sleep(0.01)
-        await stop(state, server)  # cancels the call: the connection closes
-        with pytest.raises(ConnectionError):
+        await stop(state, server)  # cancels the call
+        with pytest.raises(transport.RpcError) as cut:
             await asyncio.wait_for(client, 30)
+        assert cut.value.code() == grpc.StatusCode.UNAVAILABLE
+
+        server = transport.Server(EndsAtOnce(), "127.0.0.1:0")
+        await server.start()
+        address = f"127.0.0.1:{server.port}"
+        try:
+            with pytest.raises(ConnectionError, match="before DONE"):
+                await asyncio.wait_for(FlServiceClient(address, 1, 0, DummyTrainer(),
+                                                       device="cpu").train_model(), 30)
+            with pytest.raises(ConnectionError, match="before DONE"):
+                await asyncio.wait_for(FLObserver(address, 1).observe(), 30)
+        finally:
+            await server.stop(0.5)
 
     asyncio.run(main())

@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain torch versions, on the card; the
 launch counts under threads; and FL rounds (Plain, EncRange, and EncRange
 with lazy verification, honest and tampered) at d = 64 with the crypto on
-the card, over the port's transport.
+the card, over gRPC on 127.0.0.1.
 
 Needs an NVIDIA GPU and nvcc, so every test carries the ``gpu`` marker and the
 CPU command deselects them with ``-m "not gpu"``; the fixture's skip only
@@ -451,7 +451,7 @@ def test_launch_counts_lose_no_update_across_threads(card):
 
 @pytest.mark.parametrize("enc_type", [P.PLAIN_TYPE, P.ENC_RANGE_TYPE])
 def test_fl_round_on_the_card(card, enc_type):
-    """One round of 3 DummyTrainer clients at d = 64 over the transport, the
+    """One round of 3 DummyTrainer clients at d = 64 over gRPC, the
     crypto on the card: Plain gives 0.001, EncRange (cancelling blindings,
     0.001 rounds to 0) the accumulator's one unit, 1/128 / 3."""
     d, n = 64, 3

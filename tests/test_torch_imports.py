@@ -1,6 +1,7 @@
 """The port stands alone: no module of rofl_tpu_torch, and not chip_smoke.py,
-imports jax, flax or anything of rofl_tpu, nor grpc, google.protobuf or yaml:
-the port speaks its own wire format and transport, and needs none of them."""
+imports jax, flax or anything of rofl_tpu, nor google.protobuf or yaml: the
+port writes the wire format itself and needs neither. It speaks gRPC, and
+only its transport (``fl/transport.py``) imports ``grpc``."""
 
 import ast
 from pathlib import Path
@@ -8,7 +9,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "rofl_tpu", "grpc", "google.protobuf", "yaml")
+FORBIDDEN = ("jax", "jaxlib", "flax", "rofl_tpu", "google.protobuf", "yaml")
 # The helpers of the tests that run on the card import only the port too.
 FILES = sorted((ROOT / "rofl_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] + [
     ROOT / "tests" / "torch_port_edges.py", ROOT / "tests" / "torch_port_fl.py"]
@@ -51,6 +52,12 @@ def test_no_import_of_jax_or_the_jax_package(path):
     bad = [m for m in imported_modules(path)
            if any(m == f or m.startswith(f + ".") for f in FORBIDDEN)]
     assert not bad, f"{path} imports {bad}"
+
+
+def test_only_the_transport_imports_grpc():
+    importers = {str(p.relative_to(ROOT)) for p in FILES
+                 if any(m == "grpc" or m.startswith("grpc.") for m in imported_modules(p))}
+    assert importers == {"rofl_tpu_torch/fl/transport.py"}
 
 
 def test_kernel_sources_are_in_the_package():

@@ -1,23 +1,23 @@
-"""The trainer service and its client over the port's transport
-(``fl/trainservice.py``, ``fl/trainclient.GrpcTrainer``) against the JAX
-package's over gRPC (``rofl_tpu.fl.trainservice``, ``trainclient``):
+"""The trainer service and its client over gRPC (``fl/trainservice.py``,
+``fl/trainclient.GrpcTrainer``) against the JAX package's
+(``rofl_tpu.fl.trainservice``, ``trainclient``):
 
 - ``TrainForRound``'s answer to the same requests is the JAX service's,
   message by message, byte for byte;
-- ``GrpcTrainer`` sends the JAX client's requests byte for byte (the JAX
-  pair runs over ``grpc.aio`` on 127.0.0.1, the port's over its transport)
-  and returns the same update;
-- ``TorchTrainService`` over the transport returns train(w) - w of the
+- ``GrpcTrainer`` sends the JAX client's requests byte for byte (each pair
+  over ``grpc.aio`` on 127.0.0.1) and returns the same update;
+- ``TorchTrainService`` over gRPC returns train(w) - w of the
   port's ``Trainer``, bit for bit;
 - the client reconnects: to a service that is not listening yet, and after
-  a call that breaks off before its floats; a trainer server refuses a
-  method it does not serve.
+  a call that breaks off before its floats; a trainer server answers a
+  method it does not serve with ``UNIMPLEMENTED``.
 Tolerance: none."""
 
 import asyncio
 import logging
 import socket
 
+import grpc
 import numpy as np
 import pytest
 
@@ -211,12 +211,21 @@ def test_the_client_reconnects(monkeypatch, caplog):
 
 
 def test_a_trainer_server_refuses_the_fl_calls():
+    """A trainer server serves TrainForRound alone: the FL calls are
+    answered UNIMPLEMENTED, as a JAX trainer server answers them."""
     async def call(address):
         async with transport.open_call(address, transport.TRAIN_MODEL) as c:
-            c.done_writing()
-            return [m async for m in c.responses(wire.TrainResponse)]
+            await c.done_writing()
+            with pytest.raises(transport.RpcError) as refused:
+                [m async for m in c.responses(wire.TrainResponse)]
+        async with transport.open_call(address, transport.OBSERVER_MODEL_TRAINING) as c:
+            await c.send(wire.ModelSelection(model_id=1))
+            with pytest.raises(transport.RpcError) as observed:
+                [m async for m in c.responses(wire.TrainResponse)]
+        return refused.value.code(), observed.value.code()
 
-    assert asyncio.run(port_call(DummyTrainService(), call)) == []
+    assert asyncio.run(port_call(DummyTrainService(), call)) == (
+        grpc.StatusCode.UNIMPLEMENTED, grpc.StatusCode.UNIMPLEMENTED)
 
 
 def test_mock_cifar_sleeps_then_answers_as_the_dummy():

@@ -1,5 +1,5 @@
-"""Runs the port's FL server and clients in one event loop, over the port's
-transport on 127.0.0.1 (an ephemeral port). Shared by the FL tests on the
+"""Runs the port's FL server and clients in one event loop, over gRPC on
+127.0.0.1 (an ephemeral port). Shared by the FL tests on the
 CPU and on the card; imports only the port."""
 
 import asyncio
