@@ -21,7 +21,6 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import contextlib
 import datetime
 import os
 import time
@@ -36,7 +35,7 @@ from .crypto import range_proof_vec as rpv
 from .crypto.fp_codec import FpConfig
 from .ops import bsgs, fe
 from .spec.merlin import Transcript
-from .utils.profiling import annotate, device_trace
+from .utils.profiling import device_trace, span
 
 # reference dims (bench_constants.rs:1-16); override with --dims for quick runs
 DEFAULT_DIMS = [32768, 131072, 524288]
@@ -332,11 +331,10 @@ def main(argv=None) -> list[dict] | None:
         ap.error(f"unknown bench(es) {unknown}; choose from "
                  f"{sorted(BENCHES)} or 'all'")
     s = Suite(args.fp_bits, args.fp_frac, args.range, args.out, args.samples, args.device)
-    tracing = bool(args.trace or os.environ.get("ROFL_TRACE_DIR"))
     with device_trace(args.trace):
         for name in names:
             for d in args.dims:
-                with annotate(f"{name}-{d}") if tracing else contextlib.nullcontext():
+                with span(f"{name}-{d}"):
                     BENCHES[name](s, d)
     return s.results
 

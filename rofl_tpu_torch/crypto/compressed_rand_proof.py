@@ -145,8 +145,8 @@ def verify(transcript: Transcript, proof: CompressedRandProof, c: ElGamalPairArr
                                   fe.to_tensor(sc.pack_scalars([proof.z_r]), device))
     cp_enc = np.frombuffer(proof.c_prime_L + proof.c_prime_R, np.uint8).reshape(2, 32)
     cp, valid = curve.decompress(fe.to_tensor(fe.from_bytes_array(cp_enc), device))
-    if not bool(valid.all()):
+    if not fe.to_bool(valid.all()):
         return False
     rhs_l = curve.add(PointArray(*[x[:, :1] for x in cp]), msm.msm(c.L, pows))
     rhs_r = curve.add(PointArray(*[x[:, 1:2] for x in cp]), msm.msm(c.R, pows))
-    return bool(curve.eq(lhs.L, rhs_l)[0]) and bool(curve.eq(lhs.R, rhs_r)[0])
+    return fe.to_bool(curve.eq(lhs.L, rhs_l)[0]) and fe.to_bool(curve.eq(lhs.R, rhs_r)[0])

@@ -17,6 +17,7 @@ from ..ops import fe, sc
 from ..spec import ristretto as SR
 from ..spec import scalar as SS
 from ..spec.merlin import Transcript
+from ..utils.profiling import span
 from . import range_proof as RP
 from .fp_codec import FpConfig
 from .range_proof_vec import is_out_of_range
@@ -67,6 +68,7 @@ def check_l2(values_clipped, fp: FpConfig, prove_range: int) -> int:
     return val
 
 
+@span("range_prove")
 def create_rangeproof_l2(
     values_clipped,
     blindings,
@@ -105,6 +107,7 @@ def create_rangeproof_l2(
     return proof, commit
 
 
+@span("range_verify")
 def verify_rangeproof_l2(
     proof: RP.RangeProof,
     commit: SR.RistrettoPoint,
@@ -113,5 +116,7 @@ def verify_rangeproof_l2(
     device="cuda",
 ) -> bool:
     """verify_rangeproof_l2 (mod.rs:185-253): one commitment."""
-    return RP.verify_multiple(Transcript(b"L2RangeProof"), proof, [commit.compress()],
-                              prove_range, rng, device)
+    with span("range_verify.encode"):
+        v_bytes = [commit.compress()]
+    return RP.verify_multiple(Transcript(b"L2RangeProof"), proof, v_bytes, prove_range, rng,
+                              device)

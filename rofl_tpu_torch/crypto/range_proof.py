@@ -21,6 +21,12 @@ range_proof/mod.rs): rangeproof_domain_sep(n, m); "V"*m; "A"; "S"; y; z;
 "T_1"; "T_2"; x; "t_x"; "t_x_blinding"; "e_blinding"; w; then the ipp:
 innerproduct_domain_sep(nm); per round "L", "R", u.
 
+Spans (``utils/profiling.py``): the provers' phases ``range_prove.commit``
+(V, its encodings, the bits, A and S), ``range_prove.poly`` (y, z, the t
+polynomials, T, x, w) and ``range_prove.ipp``; the batched verifier's
+``range_verify.transcript`` (pass 1, on the host) and ``range_verify.msm``
+(pass 2, to the identity check); ``setup.bp_gens`` on the generators' fill.
+
 Every function works on the device of its tensors, or on `device` where it
 makes them. With ``device="cpu"`` the provers consume the rng exactly as the
 JAX package does on JAX:CPU, so the same seed gives the same proof bytes; on
@@ -55,6 +61,7 @@ from ..spec import generators as G
 from ..spec import ristretto as SR
 from ..spec import scalar as SS
 from ..spec.merlin import Transcript
+from ..utils.profiling import setup_span, span
 from . import pedersen
 
 IDENTITY_BYTES = bytes(32)
@@ -65,13 +72,14 @@ IDENTITY_BYTES = bytes(32)
 
 @lru_cache(maxsize=16)
 def _bp_gens(n: int, m: int, device: torch.device) -> tuple[PointArray, PointArray]:
-    g_blobs, h_blobs = [], []
-    for j in range(m):
-        gb, hb = G.bp_gens_uniform_bytes(n, j)
-        g_blobs.append(np.frombuffer(gb, np.uint8).reshape(n, 64))
-        h_blobs.append(np.frombuffer(hb, np.uint8).reshape(n, 64))
-    return (curve.from_uniform_bytes(np.concatenate(g_blobs), device),
-            curve.from_uniform_bytes(np.concatenate(h_blobs), device))
+    with setup_span("setup.bp_gens"):
+        g_blobs, h_blobs = [], []
+        for j in range(m):
+            gb, hb = G.bp_gens_uniform_bytes(n, j)
+            g_blobs.append(np.frombuffer(gb, np.uint8).reshape(n, 64))
+            h_blobs.append(np.frombuffer(hb, np.uint8).reshape(n, 64))
+        return (curve.from_uniform_bytes(np.concatenate(g_blobs), device),
+                curve.from_uniform_bytes(np.concatenate(h_blobs), device))
 
 
 _GENS_LOCK = threading.Lock()
@@ -221,84 +229,89 @@ def prove_multiple(
     if m & (m - 1):
         raise ValueError("m must be a power of two")
     nm = n * m
-    gens_G, gens_H = device_bp_gens(n, m, device)
+    with span("range_prove.commit"):
+        gens_G, gens_H = device_bp_gens(n, m, device)
 
-    transcript.append_message(b"dom-sep", b"rangeproof v1")
-    transcript.append_u64(b"n", n)
-    transcript.append_u64(b"m", m)
+        transcript.append_message(b"dom-sep", b"rangeproof v1")
+        transcript.append_u64(b"n", n)
+        transcript.append_u64(b"m", m)
 
-    # V commitments (per party): B^v · H^gamma
-    V = pedersen.pedersen_commit(_consts(values, device), _consts(blindings, device))
-    V_bytes = _compress_bytes(V)
-    transcript.append_messages(b"V", V_bytes)
+        # V commitments (per party): B^v · H^gamma
+        V = pedersen.pedersen_commit(_consts(values, device), _consts(blindings, device))
+        V_bytes = _compress_bytes(V)
+        transcript.append_messages(b"V", V_bytes)
 
-    bits = torch.from_numpy(_bits(np.array([int(v) for v in values], np.uint64), n)).to(device)
-    a_L, a_R = _a_vectors(bits)
+        bits = torch.from_numpy(_bits(np.array([int(v) for v in values], np.uint64), n)
+                                ).to(device)
+        a_L, a_R = _a_vectors(bits)
 
-    # A = B_blinding^a_blinding + Σ (bit ? G_i : -H_i)
-    a_blinding = _ints(pedersen.rnd_scalar_tensor(1, rng, device))[0]
-    terms = curve.select(bits == 1, gens_G, curve.neg(gens_H))
-    A_pt = curve.add(pedersen.base_H().mul(_consts([a_blinding], device)), curve.tree_sum(terms))
-    # S = B_blinding^s_blinding + <s_L, G> + <s_R, H>: one MSM over [G | H]
-    s_blinding = _ints(pedersen.rnd_scalar_tensor(1, rng, device))[0]
-    s_L = pedersen.rnd_scalar_tensor(nm, rng, device)
-    s_R = pedersen.rnd_scalar_tensor(nm, rng, device)
-    S_pt = curve.add(pedersen.base_H().mul(_consts([s_blinding], device)),
-                     msm.msm(_point_concat(gens_G, gens_H), torch.cat([s_L, s_R], dim=1)))
-    A_bytes, S_bytes = _compress_bytes(_point_concat(A_pt, S_pt))
-    transcript.append_message(b"A", A_bytes)
-    transcript.append_message(b"S", S_bytes)
+        # A = B_blinding^a_blinding + Σ (bit ? G_i : -H_i)
+        a_blinding = _ints(pedersen.rnd_scalar_tensor(1, rng, device))[0]
+        terms = curve.select(bits == 1, gens_G, curve.neg(gens_H))
+        A_pt = curve.add(pedersen.base_H().mul(_consts([a_blinding], device)),
+                         curve.tree_sum(terms))
+        # S = B_blinding^s_blinding + <s_L, G> + <s_R, H>: one MSM over [G | H]
+        s_blinding = _ints(pedersen.rnd_scalar_tensor(1, rng, device))[0]
+        s_L = pedersen.rnd_scalar_tensor(nm, rng, device)
+        s_R = pedersen.rnd_scalar_tensor(nm, rng, device)
+        S_pt = curve.add(pedersen.base_H().mul(_consts([s_blinding], device)),
+                         msm.msm(_point_concat(gens_G, gens_H), torch.cat([s_L, s_R], dim=1)))
+        A_bytes, S_bytes = _compress_bytes(_point_concat(A_pt, S_pt))
+        transcript.append_message(b"A", A_bytes)
+        transcript.append_message(b"S", S_bytes)
 
-    y = transcript.challenge_scalar(b"y")
-    z = transcript.challenge_scalar(b"z")
-    zz = (z * z) % SS.L
+    with span("range_prove.poly"):
+        y = transcript.challenge_scalar(b"y")
+        z = transcript.challenge_scalar(b"z")
+        zz = (z * z) % SS.L
 
-    exp_y = sc.powers(_consts([y], device), nm)
-    zz2 = _zz2_vec(n, m, z, zz, device)
-    z_vec = _consts([z], device)
+        exp_y = sc.powers(_consts([y], device), nm)
+        zz2 = _zz2_vec(n, m, z, zz, device)
+        z_vec = _consts([z], device)
 
-    l0 = sc.sub(a_L, z_vec)
-    l1 = s_L
-    r0 = sc.add(sc.mul(exp_y, sc.add(a_R, z_vec)), zz2)
-    r1 = sc.mul(exp_y, s_R)
+        l0 = sc.sub(a_L, z_vec)
+        l1 = s_L
+        r0 = sc.add(sc.mul(exp_y, sc.add(a_R, z_vec)), zz2)
+        r1 = sc.mul(exp_y, s_R)
 
-    t0_i, t2_i, t1f_i = _ints(torch.cat([
-        sc.inner_product(l0, r0, axis=0), sc.inner_product(l1, r1, axis=0),
-        sc.inner_product(sc.add(l0, l1), sc.add(r0, r1), axis=0)], dim=1))
-    t1_i = (t1f_i - t0_i - t2_i) % SS.L
+        t0_i, t2_i, t1f_i = _ints(torch.cat([
+            sc.inner_product(l0, r0, axis=0), sc.inner_product(l1, r1, axis=0),
+            sc.inner_product(sc.add(l0, l1), sc.add(r0, r1), axis=0)], dim=1))
+        t1_i = (t1f_i - t0_i - t2_i) % SS.L
 
-    t_1_blinding = _ints(pedersen.rnd_scalar_tensor(1, rng, device))[0]
-    t_2_blinding = _ints(pedersen.rnd_scalar_tensor(1, rng, device))[0]
-    T_bytes = _compress_bytes(pedersen.pedersen_commit(
-        _consts([t1_i, t2_i], device), _consts([t_1_blinding, t_2_blinding], device)))
-    transcript.append_message(b"T_1", T_bytes[0])
-    transcript.append_message(b"T_2", T_bytes[1])
+        t_1_blinding = _ints(pedersen.rnd_scalar_tensor(1, rng, device))[0]
+        t_2_blinding = _ints(pedersen.rnd_scalar_tensor(1, rng, device))[0]
+        T_bytes = _compress_bytes(pedersen.pedersen_commit(
+            _consts([t1_i, t2_i], device), _consts([t_1_blinding, t_2_blinding], device)))
+        transcript.append_message(b"T_1", T_bytes[0])
+        transcript.append_message(b"T_2", T_bytes[1])
 
-    x = transcript.challenge_scalar(b"x")
+        x = transcript.challenge_scalar(b"x")
 
-    t_x = (t0_i + t1_i * x + t2_i * x * x) % SS.L
-    t_x_blinding = (
-        sum(zz * pow(z, j, SS.L) * blindings[j] for j in range(m))
-        + x * t_1_blinding + x * x * t_2_blinding
-    ) % SS.L
-    e_blinding = (a_blinding + x * s_blinding) % SS.L
+        t_x = (t0_i + t1_i * x + t2_i * x * x) % SS.L
+        t_x_blinding = (
+            sum(zz * pow(z, j, SS.L) * blindings[j] for j in range(m))
+            + x * t_1_blinding + x * x * t_2_blinding
+        ) % SS.L
+        e_blinding = (a_blinding + x * s_blinding) % SS.L
 
-    transcript.append_message(b"t_x", SS.to_bytes(t_x))
-    transcript.append_message(b"t_x_blinding", SS.to_bytes(t_x_blinding))
-    transcript.append_message(b"e_blinding", SS.to_bytes(e_blinding))
+        transcript.append_message(b"t_x", SS.to_bytes(t_x))
+        transcript.append_message(b"t_x_blinding", SS.to_bytes(t_x_blinding))
+        transcript.append_message(b"e_blinding", SS.to_bytes(e_blinding))
 
-    w = transcript.challenge_scalar(b"w")
-    Q = curve.pack_points([SR.BASEPOINT.scalar_mul(w)], device)
+        w = transcript.challenge_scalar(b"w")
+        Q = curve.pack_points([SR.BASEPOINT.scalar_mul(w)], device)
 
-    x_c = _consts([x], device)
-    l_vec = sc.add(l0, sc.mul(l1, x_c))
-    r_vec = sc.add(r0, sc.mul(r1, x_c))
+        x_c = _consts([x], device)
+        l_vec = sc.add(l0, sc.mul(l1, x_c))
+        r_vec = sc.add(r0, sc.mul(r1, x_c))
 
-    # The H factors y^-i are not multiplied into the H points (dalek scales
-    # the bases, a ladder a lane): they ride along as pending scalar factors
-    # in _ipp_create and touch only the mod-l vectors; the group outputs are
-    # the same.
-    ipp = _ipp_create(transcript, Q, gens_G, gens_H, l_vec, r_vec, nm, _inv(y))
+    with span("range_prove.ipp"):
+        # The H factors y^-i are not multiplied into the H points (dalek scales
+        # the bases, a ladder a lane): they ride along as pending scalar factors
+        # in _ipp_create and touch only the mod-l vectors; the group outputs are
+        # the same.
+        ipp = _ipp_create(transcript, Q, gens_G, gens_H, l_vec, r_vec, nm, _inv(y))
 
     proof = RangeProof(A_bytes, S_bytes, T_bytes[0], T_bytes[1], t_x, t_x_blinding,
                        e_blinding, ipp)
@@ -377,102 +390,106 @@ def prove_multiple_batch(
     n_groups, m = values_chunks.shape
     nm = n * m
     lanes = n_groups * nm
-    gens_G, gens_H = device_bp_gens(n, m, device)
-    gens_G_t = _tile_points(gens_G, n_groups)
-    gens_H_t = _tile_points(gens_H, n_groups)
+    with span("range_prove.commit"):
+        gens_G, gens_H = device_bp_gens(n, m, device)
+        gens_G_t = _tile_points(gens_G, n_groups)
+        gens_H_t = _tile_points(gens_H, n_groups)
 
-    all_vals = values_chunks.reshape(-1)
-    gamma = (blind_limbs.to(device) if isinstance(blind_limbs, torch.Tensor)
-             else fe.to_tensor(blind_limbs, device))
-    V = pedersen.pedersen_commit(fe.to_tensor(_u64_to_limbs(all_vals), device), gamma)
-    V_bytes_all = _compress_bytes(V)
-    V_chunks = [V_bytes_all[g * m:(g + 1) * m] for g in range(n_groups)]
+        all_vals = values_chunks.reshape(-1)
+        gamma = (blind_limbs.to(device) if isinstance(blind_limbs, torch.Tensor)
+                 else fe.to_tensor(blind_limbs, device))
+        V = pedersen.pedersen_commit(fe.to_tensor(_u64_to_limbs(all_vals), device), gamma)
+        V_bytes_all = _compress_bytes(V)
+        V_chunks = [V_bytes_all[g * m:(g + 1) * m] for g in range(n_groups)]
 
-    bits = torch.from_numpy(_bits(all_vals, n)).to(device)
-    a_L, a_R = _a_vectors(bits)
+        bits = torch.from_numpy(_bits(all_vals, n)).to(device)
+        a_L, a_R = _a_vectors(bits)
 
-    # A_g = H^a_blind_g + Σ over group g of (bit ? G_i : -H_i)
-    a_blind = pedersen.rnd_scalar_tensor(n_groups, rng, device)
-    terms = curve.select(bits == 1, gens_G_t, curve.neg(gens_H_t))
-    A_pt = curve.add(pedersen.base_H().mul(a_blind), _tree_sum_groups(terms, nm, mesh))
-    del terms
+        # A_g = H^a_blind_g + Σ over group g of (bit ? G_i : -H_i)
+        a_blind = pedersen.rnd_scalar_tensor(n_groups, rng, device)
+        terms = curve.select(bits == 1, gens_G_t, curve.neg(gens_H_t))
+        A_pt = curve.add(pedersen.base_H().mul(a_blind), _tree_sum_groups(terms, nm, mesh))
+        del terms
 
-    # S_g = H^s_blind_g + <s_L, G> + <s_R, H> per group
-    s_blind = pedersen.rnd_scalar_tensor(n_groups, rng, device)
-    s_L = pedersen.rnd_scalar_tensor(lanes, rng, device).reshape(16, n_groups, nm)
-    s_R = pedersen.rnd_scalar_tensor(lanes, rng, device).reshape(16, n_groups, nm)
-    bases_GH = _tile_points(_point_concat(gens_G, gens_H), n_groups)
-    s_cat = torch.cat([s_L, s_R], dim=2).reshape(16, 2 * lanes)
-    S_pt = curve.add(pedersen.base_H().mul(s_blind), _msm_grouped(bases_GH, s_cat, 2 * nm, mesh))
-    del bases_GH, s_cat
+        # S_g = H^s_blind_g + <s_L, G> + <s_R, H> per group
+        s_blind = pedersen.rnd_scalar_tensor(n_groups, rng, device)
+        s_L = pedersen.rnd_scalar_tensor(lanes, rng, device).reshape(16, n_groups, nm)
+        s_R = pedersen.rnd_scalar_tensor(lanes, rng, device).reshape(16, n_groups, nm)
+        bases_GH = _tile_points(_point_concat(gens_G, gens_H), n_groups)
+        s_cat = torch.cat([s_L, s_R], dim=2).reshape(16, 2 * lanes)
+        S_pt = curve.add(pedersen.base_H().mul(s_blind),
+                         _msm_grouped(bases_GH, s_cat, 2 * nm, mesh))
+        del bases_GH, s_cat
+        AS_bytes = _compress_bytes(_point_concat(A_pt, S_pt))
 
-    for t, vbs in zip(transcripts, V_chunks):
-        t.append_message(b"dom-sep", b"rangeproof v1")
-        t.append_u64(b"n", n)
-        t.append_u64(b"m", m)
-        t.append_messages(b"V", vbs)
+    with span("range_prove.poly"):
+        for t, vbs in zip(transcripts, V_chunks):
+            t.append_message(b"dom-sep", b"rangeproof v1")
+            t.append_u64(b"n", n)
+            t.append_u64(b"m", m)
+            t.append_messages(b"V", vbs)
 
-    AS_bytes = _compress_bytes(_point_concat(A_pt, S_pt))
-    ys, zs = [], []
-    for g, t in enumerate(transcripts):
-        t.append_message(b"A", AS_bytes[g])
-        t.append_message(b"S", AS_bytes[n_groups + g])
-        ys.append(t.challenge_scalar(b"y"))
-        zs.append(t.challenge_scalar(b"z"))
-    zzs = [(z * z) % SS.L for z in zs]
+        ys, zs = [], []
+        for g, t in enumerate(transcripts):
+            t.append_message(b"A", AS_bytes[g])
+            t.append_message(b"S", AS_bytes[n_groups + g])
+            ys.append(t.challenge_scalar(b"y"))
+            zs.append(t.challenge_scalar(b"z"))
+        zzs = [(z * z) % SS.L for z in zs]
 
-    exp_y = torch.cat([sc.powers(_consts([y], device), nm) for y in ys], dim=1)
-    zz2 = torch.cat([_zz2_vec(n, m, z, zz, device) for z, zz in zip(zs, zzs)], dim=1)
-    z_rep = torch.repeat_interleave(_consts(zs, device), nm, dim=1)
+        exp_y = torch.cat([sc.powers(_consts([y], device), nm) for y in ys], dim=1)
+        zz2 = torch.cat([_zz2_vec(n, m, z, zz, device) for z, zz in zip(zs, zzs)], dim=1)
+        z_rep = torch.repeat_interleave(_consts(zs, device), nm, dim=1)
 
-    l0 = sc.sub(a_L, z_rep)
-    l1 = s_L.reshape(16, lanes)
-    r0 = sc.add(sc.mul(exp_y, sc.add(a_R, z_rep)), zz2)
-    r1 = sc.mul(exp_y, s_R.reshape(16, lanes))
+        l0 = sc.sub(a_L, z_rep)
+        l1 = s_L.reshape(16, lanes)
+        r0 = sc.add(sc.mul(exp_y, sc.add(a_R, z_rep)), zz2)
+        r1 = sc.mul(exp_y, s_R.reshape(16, lanes))
 
-    t_polys = _ints(torch.cat([
-        sc.sum_reduce_groups(sc.mul(l0, r0), nm), sc.sum_reduce_groups(sc.mul(l1, r1), nm),
-        sc.sum_reduce_groups(sc.mul(sc.add(l0, l1), sc.add(r0, r1)), nm)], dim=1))
-    t0_i, t2_i, t1f_i = (t_polys[k * n_groups:(k + 1) * n_groups] for k in range(3))
-    t1_i = [(f - a0 - a2) % SS.L for f, a0, a2 in zip(t1f_i, t0_i, t2_i)]
+        t_polys = _ints(torch.cat([
+            sc.sum_reduce_groups(sc.mul(l0, r0), nm), sc.sum_reduce_groups(sc.mul(l1, r1), nm),
+            sc.sum_reduce_groups(sc.mul(sc.add(l0, l1), sc.add(r0, r1)), nm)], dim=1))
+        t0_i, t2_i, t1f_i = (t_polys[k * n_groups:(k + 1) * n_groups] for k in range(3))
+        t1_i = [(f - a0 - a2) % SS.L for f, a0, a2 in zip(t1f_i, t0_i, t2_i)]
 
-    t1_blind = _ints(pedersen.rnd_scalar_tensor(n_groups, rng, device))
-    t2_blind = _ints(pedersen.rnd_scalar_tensor(n_groups, rng, device))
-    T_bytes = _compress_bytes(pedersen.pedersen_commit(
-        _consts(t1_i + t2_i, device), _consts(t1_blind + t2_blind, device)))  # T1s then T2s
-    xs = []
-    for g, t in enumerate(transcripts):
-        t.append_message(b"T_1", T_bytes[g])
-        t.append_message(b"T_2", T_bytes[n_groups + g])
-        xs.append(t.challenge_scalar(b"x"))
+        t1_blind = _ints(pedersen.rnd_scalar_tensor(n_groups, rng, device))
+        t2_blind = _ints(pedersen.rnd_scalar_tensor(n_groups, rng, device))
+        T_bytes = _compress_bytes(pedersen.pedersen_commit(
+            _consts(t1_i + t2_i, device), _consts(t1_blind + t2_blind, device)))  # T1s then T2s
+        xs = []
+        for g, t in enumerate(transcripts):
+            t.append_message(b"T_1", T_bytes[g])
+            t.append_message(b"T_2", T_bytes[n_groups + g])
+            xs.append(t.challenge_scalar(b"x"))
 
-    # Σ_j zz·z^j·γ_{g,j} per chunk, on the device
-    zz_zj = torch.cat([sc.mul(sc.powers(_consts([z], device), m), _consts([zz], device))
-                       for z, zz in zip(zs, zzs)], dim=1)  # (16, G·m)
-    bsums = _ints(sc.sum_reduce_groups(sc.mul(zz_zj, gamma), m))
+        # Σ_j zz·z^j·γ_{g,j} per chunk, on the device
+        zz_zj = torch.cat([sc.mul(sc.powers(_consts([z], device), m), _consts([zz], device))
+                           for z, zz in zip(zs, zzs)], dim=1)  # (16, G·m)
+        bsums = _ints(sc.sum_reduce_groups(sc.mul(zz_zj, gamma), m))
 
-    a_bls = _ints(a_blind)
-    s_bls = _ints(s_blind)
-    t_xs, t_x_blinds, e_blinds, ws = [], [], [], []
-    for g, t in enumerate(transcripts):
-        x = xs[g]
-        t_x = (t0_i[g] + t1_i[g] * x + t2_i[g] * x * x) % SS.L
-        t_x_blinding = (bsums[g] + x * t1_blind[g] + x * x * t2_blind[g]) % SS.L
-        e_blinding = (a_bls[g] + x * s_bls[g]) % SS.L
-        t.append_message(b"t_x", SS.to_bytes(t_x))
-        t.append_message(b"t_x_blinding", SS.to_bytes(t_x_blinding))
-        t.append_message(b"e_blinding", SS.to_bytes(e_blinding))
-        ws.append(t.challenge_scalar(b"w"))
-        t_xs.append(t_x)
-        t_x_blinds.append(t_x_blinding)
-        e_blinds.append(e_blinding)
+        a_bls = _ints(a_blind)
+        s_bls = _ints(s_blind)
+        t_xs, t_x_blinds, e_blinds, ws = [], [], [], []
+        for g, t in enumerate(transcripts):
+            x = xs[g]
+            t_x = (t0_i[g] + t1_i[g] * x + t2_i[g] * x * x) % SS.L
+            t_x_blinding = (bsums[g] + x * t1_blind[g] + x * x * t2_blind[g]) % SS.L
+            e_blinding = (a_bls[g] + x * s_bls[g]) % SS.L
+            t.append_message(b"t_x", SS.to_bytes(t_x))
+            t.append_message(b"t_x_blinding", SS.to_bytes(t_x_blinding))
+            t.append_message(b"e_blinding", SS.to_bytes(e_blinding))
+            ws.append(t.challenge_scalar(b"w"))
+            t_xs.append(t_x)
+            t_x_blinds.append(t_x_blinding)
+            e_blinds.append(e_blinding)
 
-    x_rep = _columns(xs, device)
-    a_vec = sc.add(l0.reshape(16, n_groups, nm), sc.mul(l1.reshape(16, n_groups, nm), x_rep))
-    b_vec = sc.add(r0.reshape(16, n_groups, nm), sc.mul(r1.reshape(16, n_groups, nm), x_rep))
+        x_rep = _columns(xs, device)
+        a_vec = sc.add(l0.reshape(16, n_groups, nm), sc.mul(l1.reshape(16, n_groups, nm), x_rep))
+        b_vec = sc.add(r0.reshape(16, n_groups, nm), sc.mul(r1.reshape(16, n_groups, nm), x_rep))
 
-    ipps = _ipp_create_batch(transcripts, ws, gens_G_t, gens_H_t, a_vec, b_vec, nm,
-                             [_inv(y) for y in ys], mesh)
+    with span("range_prove.ipp"):
+        ipps = _ipp_create_batch(transcripts, ws, gens_G_t, gens_H_t, a_vec, b_vec, nm,
+                                 [_inv(y) for y in ys], mesh)
 
     proofs = [RangeProof(AS_bytes[g], AS_bytes[n_groups + g], T_bytes[g], T_bytes[n_groups + g],
                          t_xs[g], t_x_blinds[g], e_blinds[g], ipps[g])
@@ -758,126 +775,131 @@ def verify_multiple_batch(
     if m & (m - 1) or nm & (nm - 1):
         return False
     lg = nm.bit_length() - 1
-    gens_G, gens_H = device_bp_gens(n, m, device)
+    with span("range_verify.transcript"):
+        gens_G, gens_H = device_bp_gens(n, m, device)
 
-    B_scalar = 0
-    Bb_scalar = 0
-    decode_list: list[bytes] = []
-    host_scalars: list[int] = []
-    metas = []
+        B_scalar = 0
+        Bb_scalar = 0
+        decode_list: list[bytes] = []
+        host_scalars: list[int] = []
+        metas = []
 
-    # pass 1: the host transcripts
-    for transcript, proof, V_bytes in items:
-        if len(V_bytes) != m:
-            return False
-        rho = int.from_bytes(rng.bytes(64), "little") % SS.L
-
-        transcript.append_message(b"dom-sep", b"rangeproof v1")
-        transcript.append_u64(b"n", n)
-        transcript.append_u64(b"m", m)
-        # V may be the identity (zero value, zero blinding: the pow2 padding
-        # of range_proof_vec relies on it; dalek PR #248 allows it)
-        transcript.append_messages(b"V", V_bytes)
-        if not _validate_and_append(transcript, b"A", proof.A):
-            return False
-        if not _validate_and_append(transcript, b"S", proof.S):
-            return False
-        y = transcript.challenge_scalar(b"y")
-        z = transcript.challenge_scalar(b"z")
-        zz = (z * z) % SS.L
-        if not _validate_and_append(transcript, b"T_1", proof.T_1):
-            return False
-        if not _validate_and_append(transcript, b"T_2", proof.T_2):
-            return False
-        x = transcript.challenge_scalar(b"x")
-        transcript.append_message(b"t_x", SS.to_bytes(proof.t_x))
-        transcript.append_message(b"t_x_blinding", SS.to_bytes(proof.t_x_blinding))
-        transcript.append_message(b"e_blinding", SS.to_bytes(proof.e_blinding))
-        w = transcript.challenge_scalar(b"w")
-
-        c = int.from_bytes(rng.bytes(64), "little") % SS.L  # value combiner
-
-        if len(proof.ipp.L) != lg or lg >= 32:
-            return False
-        transcript.append_message(b"dom-sep", b"ipp v1")
-        transcript.append_u64(b"n", nm)
-        challenges = []
-        for Lb, Rb in zip(proof.ipp.L, proof.ipp.R):
-            if not _validate_and_append(transcript, b"L", Lb):
+        # pass 1: the host transcripts
+        for transcript, proof, V_bytes in items:
+            if len(V_bytes) != m:
                 return False
-            if not _validate_and_append(transcript, b"R", Rb):
+            rho = int.from_bytes(rng.bytes(64), "little") % SS.L
+
+            transcript.append_message(b"dom-sep", b"rangeproof v1")
+            transcript.append_u64(b"n", n)
+            transcript.append_u64(b"m", m)
+            # V may be the identity (zero value, zero blinding: the pow2 padding
+            # of range_proof_vec relies on it; dalek PR #248 allows it)
+            transcript.append_messages(b"V", V_bytes)
+            if not _validate_and_append(transcript, b"A", proof.A):
                 return False
-            challenges.append(transcript.challenge_scalar(b"u"))
-        u_sq = [(u * u) % SS.L for u in challenges]
-        u_inv = [_inv(u) for u in challenges]
-        u_inv_sq = [(v * v) % SS.L for v in u_inv]
-        all_inv = 1
-        for v in u_inv:
-            all_inv = (all_inv * v) % SS.L
+            if not _validate_and_append(transcript, b"S", proof.S):
+                return False
+            y = transcript.challenge_scalar(b"y")
+            z = transcript.challenge_scalar(b"z")
+            zz = (z * z) % SS.L
+            if not _validate_and_append(transcript, b"T_1", proof.T_1):
+                return False
+            if not _validate_and_append(transcript, b"T_2", proof.T_2):
+                return False
+            x = transcript.challenge_scalar(b"x")
+            transcript.append_message(b"t_x", SS.to_bytes(proof.t_x))
+            transcript.append_message(b"t_x_blinding", SS.to_bytes(proof.t_x_blinding))
+            transcript.append_message(b"e_blinding", SS.to_bytes(proof.e_blinding))
+            w = transcript.challenge_scalar(b"w")
 
-        a, b = proof.ipp.a, proof.ipp.b
-        basepoint_scalar = (w * (proof.t_x - a * b) + c * (_delta(n, m, y, z) - proof.t_x)) % SS.L
-        B_scalar = (B_scalar + rho * basepoint_scalar) % SS.L
-        Bb_scalar = (Bb_scalar + rho * (-proof.e_blinding - c * proof.t_x_blinding)) % SS.L
+            c = int.from_bytes(rng.bytes(64), "little") % SS.L  # value combiner
 
-        decode_list += ([proof.A, proof.S, proof.T_1, proof.T_2] + proof.ipp.L + proof.ipp.R
-                        + V_bytes)
-        host_scalars += [(k * rho) % SS.L for k in
-                         [1, x, (c * x) % SS.L, (c * x * x) % SS.L] + u_sq + u_inv_sq]
-        metas.append(dict(rho=rho, z=z, zz=zz, c=c, a=a, b=b, y_inv=_inv(y), u_sq=u_sq,
-                          all_inv=all_inv))
+            if len(proof.ipp.L) != lg or lg >= 32:
+                return False
+            transcript.append_message(b"dom-sep", b"ipp v1")
+            transcript.append_u64(b"n", nm)
+            challenges = []
+            for Lb, Rb in zip(proof.ipp.L, proof.ipp.R):
+                if not _validate_and_append(transcript, b"L", Lb):
+                    return False
+                if not _validate_and_append(transcript, b"R", Rb):
+                    return False
+                challenges.append(transcript.challenge_scalar(b"u"))
+            u_sq = [(u * u) % SS.L for u in challenges]
+            u_inv = [_inv(u) for u in challenges]
+            u_inv_sq = [(v * v) % SS.L for v in u_inv]
+            all_inv = 1
+            for v in u_inv:
+                all_inv = (all_inv * v) % SS.L
 
-    # pass 2: every chunk's scalar vectors at once, on the device
-    n_groups = len(items)
+            a, b = proof.ipp.a, proof.ipp.b
+            basepoint_scalar = (w * (proof.t_x - a * b)
+                                + c * (_delta(n, m, y, z) - proof.t_x)) % SS.L
+            B_scalar = (B_scalar + rho * basepoint_scalar) % SS.L
+            Bb_scalar = (Bb_scalar + rho * (-proof.e_blinding - c * proof.t_x_blinding)) % SS.L
 
-    def col(key):
-        return _columns([mt[key] for mt in metas], device)  # (16, G, 1)
+            decode_list += ([proof.A, proof.S, proof.T_1, proof.T_2] + proof.ipp.L + proof.ipp.R
+                            + V_bytes)
+            host_scalars += [(k * rho) % SS.L for k in
+                             [1, x, (c * x) % SS.L, (c * x * x) % SS.L] + u_sq + u_inv_sq]
+            metas.append(dict(rho=rho, z=z, zz=zz, c=c, a=a, b=b, y_inv=_inv(y), u_sq=u_sq,
+                              all_inv=all_inv))
 
-    # s vector by doubling, with per-chunk u² columns
-    s_all = col("all_inv")
-    for j in range(lg):
-        usq_j = _columns([mt["u_sq"][(lg - 1) - j] for mt in metas], device)
-        s_all = torch.cat([s_all, sc.mul(s_all, usq_j)], dim=2)
-    s_inv_all = torch.flip(s_all, dims=[2])
+    with span("range_verify.msm"):
+        # pass 2: every chunk's scalar vectors at once, on the device
+        n_groups = len(items)
 
-    yi_pows = _pow_rows(col("y_inv"), nm)
-    z_pows = _pow_rows(col("z"), m)  # (16, G, m)
-    two_pows = sc.powers(_consts([2], device), n)  # (16, n)
-    zz2_all = sc.mul(torch.repeat_interleave(sc.mul(z_pows, col("zz")), n, dim=2),
-                     two_pows[:, None, :].repeat(1, n_groups, m))
+        def col(key):
+            return _columns([mt[key] for mt in metas], device)  # (16, G, 1)
 
-    neg_z = _columns([(SS.L - mt["z"]) % SS.L for mt in metas], device)
-    g_all = sc.mul(sc.sub(neg_z, sc.mul(s_all, col("a"))), col("rho"))
-    h_all = sc.mul(sc.add(col("z"), sc.mul(yi_pows, sc.sub(zz2_all, sc.mul(s_inv_all, col("b"))))),
-                   col("rho"))
-    # mod-l sums over the chunk axis
-    g_acc = sc.sum_reduce(g_all, axis=0).reshape(16, nm)
-    h_acc = sc.sum_reduce(h_all, axis=0).reshape(16, nm)
+        # s vector by doubling, with per-chunk u² columns
+        s_all = col("all_inv")
+        for j in range(lg):
+            usq_j = _columns([mt["u_sq"][(lg - 1) - j] for mt in metas], device)
+            s_all = torch.cat([s_all, sc.mul(s_all, usq_j)], dim=2)
+        s_inv_all = torch.flip(s_all, dims=[2])
 
-    czr = _columns([(mt["c"] * mt["zz"] % SS.L) * mt["rho"] % SS.L for mt in metas], device)
-    value_cols = sc.mul(z_pows, czr)  # (16, G, m)
+        yi_pows = _pow_rows(col("y_inv"), nm)
+        z_pows = _pow_rows(col("z"), m)  # (16, G, m)
+        two_pows = sc.powers(_consts([2], device), n)  # (16, n)
+        zz2_all = sc.mul(torch.repeat_interleave(sc.mul(z_pows, col("zz")), n, dim=2),
+                         two_pows[:, None, :].repeat(1, n_groups, m))
 
-    rows = np.frombuffer(b"".join(decode_list), np.uint8).reshape(len(decode_list), 32)
-    pts, valid = curve.decompress_rows(rows, device)
-    if not bool(valid.all()):
-        return False
+        neg_z = _columns([(SS.L - mt["z"]) % SS.L for mt in metas], device)
+        g_all = sc.mul(sc.sub(neg_z, sc.mul(s_all, col("a"))), col("rho"))
+        h_all = sc.mul(sc.add(col("z"),
+                              sc.mul(yi_pows, sc.sub(zz2_all, sc.mul(s_inv_all, col("b"))))),
+                       col("rho"))
+        # mod-l sums over the chunk axis
+        g_acc = sc.sum_reduce(g_all, axis=0).reshape(16, nm)
+        h_acc = sc.sum_reduce(h_all, axis=0).reshape(16, nm)
 
-    # per chunk: its 4 + 2lg host scalars, then its m value columns, in
-    # decode_list order
-    stride = 4 + 2 * lg
-    hs = _consts(host_scalars, device)
-    cols = []
-    for g in range(n_groups):
-        cols.append(hs[:, g * stride:(g + 1) * stride])
-        cols.append(value_cols[:, g])
-    fixed = curve.pack_points([G.pedersen_B_blinding(), G.pedersen_B()], device)
-    all_pts = _point_concat(pts, fixed, gens_G, gens_H)
-    all_scalars = torch.cat(cols + [_consts([Bb_scalar, B_scalar], device), g_acc, h_acc], dim=1)
-    if mesh is not None:
-        total = pmesh.sharded_msm(mesh, all_pts, all_scalars)
-    else:
-        total = msm.msm(all_pts, all_scalars)
-    return bool(curve.eq(total, curve.identity((1,), total.device))[0])
+        czr = _columns([(mt["c"] * mt["zz"] % SS.L) * mt["rho"] % SS.L for mt in metas], device)
+        value_cols = sc.mul(z_pows, czr)  # (16, G, m)
+
+        rows = np.frombuffer(b"".join(decode_list), np.uint8).reshape(len(decode_list), 32)
+        pts, valid = curve.decompress_rows(rows, device)
+        if not fe.to_bool(valid.all()):
+            return False
+
+        # per chunk: its 4 + 2lg host scalars, then its m value columns, in
+        # decode_list order
+        stride = 4 + 2 * lg
+        hs = _consts(host_scalars, device)
+        cols = []
+        for g in range(n_groups):
+            cols.append(hs[:, g * stride:(g + 1) * stride])
+            cols.append(value_cols[:, g])
+        fixed = curve.pack_points([G.pedersen_B_blinding(), G.pedersen_B()], device)
+        all_pts = _point_concat(pts, fixed, gens_G, gens_H)
+        all_scalars = torch.cat(cols + [_consts([Bb_scalar, B_scalar], device), g_acc, h_acc],
+                                dim=1)
+        if mesh is not None:
+            total = pmesh.sharded_msm(mesh, all_pts, all_scalars)
+        else:
+            total = msm.msm(all_pts, all_scalars)
+        return fe.to_bool(curve.eq(total, curve.identity((1,), total.device))[0])
 
 
 def verify_multiple(

@@ -22,6 +22,7 @@ from ..ops.curve import PointArray
 from ..spec import generators as G
 from ..spec import scalar as SS
 from ..spec.merlin import Transcript
+from ..utils.profiling import span
 from . import range_proof as RP
 from .fp_codec import FpConfig
 
@@ -63,6 +64,7 @@ def shifted_fixed_values(values, fp: FpConfig, prove_range: int) -> np.ndarray:
     return np.where(neg, negv, pos) & np.uint64(fp.max_bits)
 
 
+@span("range_prove")
 def create_rangeproof(
     values_clipped,
     blindings,
@@ -126,6 +128,7 @@ def create_rangeproof(
     return proofs, commits
 
 
+@span("range_verify")
 def verify_rangeproof(
     proofs: list[RP.RangeProof],
     commits: PointArray,
@@ -142,12 +145,14 @@ def verify_rangeproof(
     device = commits.device
     d = commits.x.shape[1]
     offset = 1 << (prove_range - 1)
-    shifted = curve.add(commits, curve.pack_points([G.pedersen_B().scalar_mul(offset)], device))
     ext_len = next_pow2(d)
-    if ext_len != d:
-        ident = PointArray(*[c.expand(16, ext_len - d) for c in curve.identity((1,), device)])
-        shifted = RP._point_concat(shifted, ident)
-    all_bytes = RP._compress_bytes(shifted)
+    with span("range_verify.encode"):
+        shifted = curve.add(commits,
+                            curve.pack_points([G.pedersen_B().scalar_mul(offset)], device))
+        if ext_len != d:
+            ident = PointArray(*[c.expand(16, ext_len - d) for c in curve.identity((1,), device)])
+            shifted = RP._point_concat(shifted, ident)
+        all_bytes = RP._compress_bytes(shifted)
     if not proofs or ext_len % len(proofs):
         return False
     chunk = ext_len // len(proofs)

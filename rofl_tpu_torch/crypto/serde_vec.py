@@ -186,7 +186,7 @@ def decompress_rows(rows: np.ndarray, device="cuda") -> PointArray:
     non-canonical field encoding (s >= p or s odd, per dalek decompress) and
     on an encoding that is no point."""
     pts, valid = curve.decompress_rows(rows, device)
-    if not bool(valid.all()):
+    if not fe.to_bool(valid.all()):
         raise ValueError("invalid ristretto encoding")
     return pts
 

@@ -17,6 +17,11 @@ With tensors on the CPU the host sampler consumes the rng exactly as the JAX
 package does off the TPU, so the same seed gives the same proof bytes; on
 the card the keyed XOF sampler gives other proofs, which verify the same.
 
+Spans (``utils/profiling.py``): ``sigma_prove`` and ``sigma_verify`` on the
+entry points, ``sigma.transcript`` on ``challenges``. The per-lane verifiers
+return a mask that their caller reads, so their span holds the launches and
+not the wait.
+
 Transcript schedules (must match exactly):
   RandProof       (rand_proof/mod.rs:64-85, dealer.rs:15-56):
     dom-sep "randomness proof v1"; "C"(64B eg); "C_prime"(64B eg);
@@ -56,9 +61,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops import curve, msm, sc
+from ..ops import curve, fe, msm, sc
 from ..ops.curve import PointArray
 from ..parallel import mesh as pmesh
+from ..utils.profiling import span
 from . import pedersen
 from .batch_transcript import BatchTranscript, field_byte_cols
 from .pedersen import ElGamalPairArray
@@ -75,6 +81,7 @@ def eg_byte_cols(pair: ElGamalPairArray) -> torch.Tensor:
     return torch.cat([point_byte_cols(pair.L), point_byte_cols(pair.R)], dim=0)
 
 
+@span("sigma.transcript")
 def challenges(label: bytes, messages: list) -> torch.Tensor:
     """The Fiat-Shamir challenge of every lane: a fresh transcript `label`,
     the domain separator, the (message label, (L, N) byte columns) pairs in
@@ -118,6 +125,7 @@ def _rand_prove_core(label: bytes, m, r, m_prime, r_prime, existing):
     return c, c_prime, z_m, z_r
 
 
+@span("sigma_prove")
 def rand_proof_prove(
     m: torch.Tensor,
     r: torch.Tensor,
@@ -161,6 +169,7 @@ def _rand_verify_core(label: bytes, c, c_prime, z_m, z_r) -> torch.Tensor:
     return _elgamal_relation(c_prime, z_m, z_r, c_times_l, c_times_r)
 
 
+@span("sigma_verify")
 def rand_proof_verify(
     proof: RandProofVec,
     c: ElGamalPairArray,
@@ -231,6 +240,7 @@ def _square_rand_prove_core(label: bytes, m, r1, r2, m_prime, r1_prime, r2_prime
     return c.c, c.c_sq, c_prime, c_sq_prime, z_m, z_r1, z_r2
 
 
+@span("sigma_prove")
 def square_rand_proof_prove(
     m: torch.Tensor,
     r1: torch.Tensor,
@@ -263,6 +273,7 @@ def _square_rand_verify_core(label: bytes, c_eg, c_sq, c_prime, c_sq_prime, z_m,
     return ok_eg & _square_relation(c_sq_prime, z_r2, z_m_times_l, c_times_sq)
 
 
+@span("sigma_verify")
 def square_rand_proof_verify(
     proof: SquareRandProofVec,
     c: SquareRandCommitVec,
@@ -315,6 +326,7 @@ def _square_rand_batch_verify_core(label: bytes, proof: SquareRandProofVec,
     return curve.eq(total, curve.identity((1,), total.device))
 
 
+@span("sigma_verify")
 def square_rand_proof_verify_batched(
     proof: SquareRandProofVec,
     c: SquareRandCommitVec,
@@ -326,7 +338,7 @@ def square_rand_proof_verify_batched(
     weights from `rng` first, on the proof's device."""
     n = proof.z_m.shape[1]
     rho = pedersen.rnd_scalar_tensor(3 * n, rng, proof.z_m.device)
-    return bool(_square_rand_batch_verify_core(transcript_label, proof, c, rho).all())
+    return fe.to_bool(_square_rand_batch_verify_core(transcript_label, proof, c, rho).all())
 
 
 # -- SquareProof (Pedersen-only) --------------------------------------------
@@ -367,6 +379,7 @@ def _square_prove_core(label: bytes, m, r1, r2, m_prime, r1_prime, r2_prime, exi
     return c.c_l, c.c_sq, c_l_prime, c_sq_prime, z_m, z_r1, z_r2
 
 
+@span("sigma_prove")
 def square_proof_prove(
     m: torch.Tensor,
     r1: torch.Tensor,
@@ -397,6 +410,7 @@ def _square_verify_core(label: bytes, c_l, c_sq, c_l_prime, c_sq_prime, z_m, z_r
         c_sq_prime, z_r2, z_m_times_l, c_times_sq)
 
 
+@span("sigma_verify")
 def square_proof_verify(
     proof: SquareProofVec,
     c: SquareCommitVec,

@@ -28,6 +28,9 @@ out of range gives a verdict that depends on the mode. The port gives the
 JAX package's verdict in each.
 
 The commitment vectors live as PointArrays on the device the caller names.
+Spans (``utils/profiling.py``): ``encrypt``, ``serialize``, ``deserialize``,
+``verify``, ``accumulate`` and ``extract`` with its ``extract.unity``,
+``extract.bsgs`` and ``extract.decode``.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from ..crypto.pedersen import ElGamalPairArray
 from ..ops import bsgs, curve, fe, sc
 from ..ops.curve import PointArray
 from ..spec.merlin import Transcript
+from ..utils.profiling import span
 from . import wire
 
 PLAIN_TYPE = 1
@@ -262,11 +266,12 @@ class EncParamsRange:
         proofs against the first ``num`` commitments. With a mesh only the
         range proofs' combined MSM is sharded, as in the JAX package; the Σ
         verify stays whole."""
-        if not bool(sigma.rand_proof_verify(self.rand_proofs, self.enc_values).all()):
+        if not fe.to_bool(sigma.rand_proof_verify(self.rand_proofs, self.enc_values).all()):
             return False
         return _range_verify(self.enc_values, self.range_proofs, self.check_percentage, self.fp,
                              self.prove_range, rng, mesh)
 
+    @span("serialize")
     def serialize(self) -> bytes:
         return wire.encode_length_delimited(wire.EncRangeData(
             enc_values=_pairs_to_bytes(self.enc_values),
@@ -339,6 +344,7 @@ class EncParamsL2:
         return L2RP.verify_rangeproof_l2(self.square_range_proof, sum_pt, self.l2_prove_range,
                                          rng, self.enc_values.c_sq.device)
 
+    @span("serialize")
     def serialize(self) -> bytes:
         return wire.encode_length_delimited(wire.EncNormData(
             enc_values=_l2_commits_to_bytes(self.enc_values),
@@ -396,6 +402,7 @@ class EncParamsRangeCompressed:
         return _range_verify(self.enc_values, self.range_proofs, self.check_percentage, self.fp,
                              self.prove_range, rng, mesh)
 
+    @span("serialize")
     def serialize(self) -> bytes:
         return wire.encode_length_delimited(wire.EncRangeData(
             enc_values=_pairs_to_bytes(self.enc_values),
@@ -463,7 +470,7 @@ class EncParamsL2Compressed:
         proof, the range proofs (their combined MSM sharded over `mesh` when
         one is given), then the L2 sum proof against Σ c_sq."""
         sq_c = sigma.SquareCommitVec(self.enc_values.c.L, self.enc_values.c_sq)
-        if not bool(sigma.square_proof_verify(self.square_proofs, sq_c).all()):
+        if not fe.to_bool(sigma.square_proof_verify(self.square_proofs, sq_c).all()):
             return False
         if not CRP.verify(Transcript(CRP.TRANSCRIPT_LABEL), self.rand_proof, self.enc_values.c):
             return False
@@ -474,6 +481,7 @@ class EncParamsL2Compressed:
         return L2RP.verify_rangeproof_l2(self.square_range_proof, sum_pt, self.l2_prove_range,
                                          rng, self.enc_values.c_sq.device)
 
+    @span("serialize")
     def serialize(self) -> bytes:
         return wire.encode_length_delimited(wire.EncNormDataCompressed(
             enc_values=_l2_commits_to_bytes(self.enc_values),
@@ -510,6 +518,7 @@ _MODE_CLASSES = {
 }
 
 
+@span("encrypt")
 def encrypt(enc_type: int, plaintext: np.ndarray, blindings, cfg: CryptoConfig,
             rng: np.random.Generator, device="cuda"):
     """EncModelParams::encrypt dispatch (params.rs:356-405)."""
@@ -518,6 +527,7 @@ def encrypt(enc_type: int, plaintext: np.ndarray, blindings, cfg: CryptoConfig,
     return _MODE_CLASSES[enc_type].encrypt(plaintext, blindings, cfg, rng, device)
 
 
+@span("deserialize")
 def deserialize(enc_type: int, data: bytes, fp: FpConfig, device="cuda"):
     """EncModelParams::deserialize dispatch (params.rs:334-354)."""
     if enc_type == PLAIN_TYPE:
@@ -525,6 +535,7 @@ def deserialize(enc_type: int, data: bytes, fp: FpConfig, device="cuda"):
     return _MODE_CLASSES[enc_type].deserialize(data, fp, device)
 
 
+@span("verify")
 def verify(params, rng: np.random.Generator, mesh=None) -> bool:
     """EncModelParams::verify (params.rs:181-291); Plain is trivially true.
 
@@ -574,6 +585,7 @@ class Accumulator:
             self.pairs = ElGamalPairArray(unity, unity)
             self.plain = None
 
+    @span("accumulate")
     def accumulate(self, params) -> bool:
         """Add one client's update; False (and nothing added) for an update
         of another size, or of an encrypted kind in Plain mode or the other
@@ -589,14 +601,19 @@ class Accumulator:
         self.pairs = pedersen.add_pairs(self.pairs, pairs)
         return True
 
+    @span("extract")
     def extract(self) -> np.ndarray | None:
         """The decoded float32 sum, or None where a blinding did not cancel
         or a value lies outside the BSGS range."""
         if self.enc_type == PLAIN_TYPE:
             return self.plain.copy()
-        if not bool(pedersen.right_elem_is_unity(self.pairs).all()):
-            return None
-        vals, ok = bsgs.solve_discrete_log(self.pairs.L, m=self.bsgs_m, n_bits=self.fp.n_bits)
-        if not bool(ok.all()):
-            return None
-        return self.fp.scalar_limbs_to_f32(fe.to_numpy(vals))
+        with span("extract.unity"):
+            if not fe.to_bool(pedersen.right_elem_is_unity(self.pairs).all()):
+                return None
+        with span("extract.bsgs"):
+            vals, ok = bsgs.solve_discrete_log(self.pairs.L, m=self.bsgs_m,
+                                               n_bits=self.fp.n_bits)
+            if not fe.to_bool(ok.all()):
+                return None
+        with span("extract.decode"):
+            return self.fp.scalar_limbs_to_f32(fe.to_numpy(vals))

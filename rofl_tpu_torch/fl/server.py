@@ -21,12 +21,19 @@ that a deserialize has not finished writing. With more than one card (and
 the device a card) the server builds ``param_mesh()`` over every card, as the
 JAX server does over its devices, and each verification's range-proof MSM
 shards its terms over it; on one card there is no mesh.
+
+Spans (``utils/profiling.py``): an upload's root ``server.upload``, whose
+deserialize, verify and accumulate run in copies of its context on the
+pools' threads; ``server.round`` and ``server.verify_wait`` at the instants
+of the round's ``TimeState``.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextvars
 import logging
+import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
@@ -34,6 +41,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import param_mesh
+from ..utils.profiling import span
 from . import params as P
 from . import transport, wire
 from .logs import BenchLogger, TimeState
@@ -42,6 +50,14 @@ from .util import CHUNK_SIZE, DataBlockStorage, chunk_bytes, write_model_to_file
 logger = logging.getLogger("rofl_tpu_torch.server")
 
 BSGS_TABLE_SIZE = 1 << 16  # server.rs:36
+
+
+def _submit(pool: ThreadPoolExecutor, fn, *args) -> asyncio.Future:
+    """fn(*args) on `pool` in a copy of the caller's context, so that the
+    spans it opens there keep their parent (``run_in_executor`` copies no
+    context)."""
+    return asyncio.get_running_loop().run_in_executor(pool, contextvars.copy_context().run,
+                                                      fn, *args)
 
 
 @dataclass
@@ -66,7 +82,8 @@ class ServerConfig:
 
 class TrainingRoundState:
     """Per-round accumulator + verification bookkeeping (server.rs:393-509).
-    ``extracted`` holds the round's decoded sum once it is extracted."""
+    ``extracted`` holds the round's decoded sum once it is extracted;
+    ``start_ns`` the ``time.time_ns()`` of its first upload."""
 
     def __init__(self, round_id: int, expected_clients: int, cfg: ServerConfig):
         self.round_id = round_id
@@ -79,6 +96,7 @@ class TrainingRoundState:
         self.time_state = TimeState()
         self.finished = asyncio.Event()
         self.extracted: np.ndarray | None = None
+        self.start_ns: int | None = None
 
     async def wait_for_verif_completion(self) -> bool:
         if self.verify_tasks:
@@ -203,54 +221,64 @@ class TrainingState:
             raise
 
     async def _handle_client_update(self, client_id: int, data: bytes):
-        loop = asyncio.get_running_loop()
+        """The upload's root span ``server.upload`` (trace id (round, client))
+        runs to the end of its accumulate; its deserialize, verify and
+        accumulate are its children on the pools' threads."""
         state = self.current_round()
         state.time_state.record()
-        enc_params = await loop.run_in_executor(
-            self.crypto_pool, P.deserialize, self.cfg.enc_type, data, self.cfg.crypto.fp,
-            self.cfg.device)
-        # verification on the dedicated pool (eager or lazily awaited)
-        fut = loop.run_in_executor(self.verify_pool, P.verify, enc_params, self.rng, self.mesh)
-        state.verify_tasks.append(fut)
-        async with self.lock:
-            ok = await loop.run_in_executor(self.crypto_pool, state.accumulator.accumulate,
-                                            enc_params)
-            if not ok:
-                logger.error("accumulate failed for client %d", client_id)
-                return
-            state.done_count += 1
-            logger.info("aggregated client %d round %d (%d/%d)", client_id, state.round_id,
-                        state.done_count, state.expected_clients)
-            if state.done_count == state.expected_clients:
-                await self._finalize_round(state)
+        if state.start_ns is None:
+            state.start_ns = time.time_ns()
+        with span("server.upload", trace_id=(state.round_id, client_id)) as upload:
+            enc_params = await _submit(self.crypto_pool, P.deserialize, self.cfg.enc_type, data,
+                                       self.cfg.crypto.fp, self.cfg.device)
+            # verification on the dedicated pool (eager or lazily awaited)
+            fut = _submit(self.verify_pool, P.verify, enc_params, self.rng, self.mesh)
+            state.verify_tasks.append(fut)
+            async with self.lock:
+                ok = await _submit(self.crypto_pool, state.accumulator.accumulate, enc_params)
+                upload.close()
+                if not ok:
+                    logger.error("accumulate failed for client %d", client_id)
+                    return
+                state.done_count += 1
+                logger.info("aggregated client %d round %d (%d/%d)", client_id, state.round_id,
+                            state.done_count, state.expected_clients)
+                if state.done_count == state.expected_clients:
+                    await self._finalize_round(state)
 
     async def _finalize_round(self, state: TrainingRoundState):
-        loop = asyncio.get_running_loop()
-        state.time_state.record()
-        extracted = await loop.run_in_executor(self.crypto_pool, state.accumulator.extract)
-        state.time_state.record()
-        if extracted is None:
-            logger.error("extraction failed (blindings not cancelled?)")
-            state.verification_failed = True
-            self.done_event.set()
-            return
-        state.extracted = extracted
-        # lazy: wait only for the PREVIOUS round's proofs; eager: this one's
-        wait_state = self.previous_round() if self.cfg.lazy_verification else state
-        if wait_state is not None:
-            ok = await wait_state.wait_for_verif_completion()
-            if not ok:
-                logger.error("verification FAILED for round %d", wait_state.round_id)
-                raise RuntimeError("proof verification failed")
-        update = extracted * (1.0 / self.cfg.num_clients)
-        self.global_model = self.global_model + update * self.cfg.learning_rate
-        state.time_state.record()
+        """The round's span ``server.round`` runs from its first upload's
+        ``TimeState.record()`` to the one after the model update;
+        ``server.verify_wait`` is the wait for the uploads' verification
+        between the record after the extract and the model update."""
+        with span("server.round", trace_id=(state.round_id,), start_ns=state.start_ns):
+            state.time_state.record()
+            extracted = await _submit(self.crypto_pool, state.accumulator.extract)
+            state.time_state.record()
+            if extracted is None:
+                logger.error("extraction failed (blindings not cancelled?)")
+                state.verification_failed = True
+                self.done_event.set()
+                return
+            state.extracted = extracted
+            # lazy: wait only for the PREVIOUS round's proofs; eager: this one's
+            wait_state = self.previous_round() if self.cfg.lazy_verification else state
+            if wait_state is not None:
+                with span("server.verify_wait"):
+                    ok = await wait_state.wait_for_verif_completion()
+                if not ok:
+                    logger.error("verification FAILED for round %d", wait_state.round_id)
+                    raise RuntimeError("proof verification failed")
+            update = extracted * (1.0 / self.cfg.num_clients)
+            self.global_model = self.global_model + update * self.cfg.learning_rate
+            state.time_state.record()
         state.time_state.log_bench_times(self.bench, state.round_id)
         state.finished.set()
 
         if state.round_id + 1 >= self.cfg.num_rounds or self.status == "terminate":
             if self.cfg.lazy_verification:
-                ok = await state.wait_for_verif_completion()
+                with span("server.verify_wait"):
+                    ok = await state.wait_for_verif_completion()
                 if not ok:
                     raise RuntimeError("proof verification failed (final round)")
             await self.broadcast_done()

@@ -31,6 +31,7 @@ import torch
 from . import curve, fe, fixed_base, sc
 from .curve import PointArray
 from ..spec import ristretto as SR
+from ..utils.profiling import setup_span
 
 _tables: dict = {}
 _tables_lock = threading.Lock()
@@ -63,7 +64,8 @@ def build_table(m: int, device="cuda"):
     device = fe.canonical_device(device)
     with _tables_lock:
         if (m, device) not in _tables:
-            _tables[(m, device)] = _build_table(m, device)
+            with setup_span("setup.bsgs_table"):
+                _tables[(m, device)] = _build_table(m, device)
         return _tables[(m, device)]
 
 

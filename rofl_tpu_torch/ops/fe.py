@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..spec import field as SF
+from ..utils import profiling
 
 NLIMB = 16
 MASK16 = 0xFFFF
@@ -69,10 +70,19 @@ def to_tensor(limbs, device) -> torch.Tensor:
 
 
 def to_numpy(limbs) -> np.ndarray:
-    """Limb tensor (or array) → numpy uint32 on the host."""
+    """Limb tensor (or array) → numpy uint32 on the host. Reading a tensor
+    counts as one ``host_reads`` (on the card each read drains the stream)."""
     if isinstance(limbs, torch.Tensor):
+        profiling.count("host_reads")
         limbs = limbs.cpu().numpy()
     return np.asarray(limbs).astype(np.uint32)
+
+
+def to_bool(t: torch.Tensor) -> bool:
+    """A one-element bool tensor's value on the host, counted as one
+    ``host_reads``."""
+    profiling.count("host_reads")
+    return bool(t)
 
 
 def from_bytes_array(data: np.ndarray) -> np.ndarray:

@@ -20,6 +20,7 @@ import threading
 
 import torch
 
+from ..utils.profiling import setup_span
 from . import curve, fe
 from .curve import PointArray
 
@@ -98,7 +99,9 @@ class FixedBase:
         device = fe.canonical_device(device)
         with self._lock:
             if device not in self._tables:
-                self._tables[device] = build_table(curve.pack_points([self.spec_point], device))
+                with setup_span("setup.fixed_base"):
+                    self._tables[device] = build_table(
+                        curve.pack_points([self.spec_point], device))
             return self._tables[device]
 
     def mul(self, scalars: torch.Tensor) -> PointArray:

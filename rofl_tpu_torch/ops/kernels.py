@@ -68,6 +68,7 @@ import numpy as np
 import torch
 
 from ..spec import field as SF
+from ..utils.profiling import setup_span
 from . import fe, sc
 from .dispatch import use_kernels
 
@@ -171,7 +172,8 @@ def build_kernels() -> dict:
     each splitting its device code over the cores (--split-compile=0)."""
     with _lock:
         if len(_functions) < len(_ARGTYPES) + len(_HELPERS):
-            _build_and_load()
+            with setup_span("setup.kernels"):
+                _build_and_load()
     return _functions
 
 

@@ -584,3 +584,37 @@ def test_l2_verify_with_a_virtual_mesh_of_the_card(card):
     sharded, _ = RPV.create_rangeproof(clipped, blind, fp, 8, 16, np.random.default_rng(3),
                                        card, mesh)
     assert [p.to_bytes() for p in plain] == [p.to_bytes() for p in sharded]
+
+
+def test_msm_kernels_lie_inside_the_spans_that_launched_them(card):
+    """One EncL2 verify at d = 4096 under a profiler with CUDA activity: every
+    ``msm_*_kernel`` event lies inside a ``range_verify.msm`` or
+    ``sigma_verify`` span, with 0.5 ms of slack. The spans end at the host
+    read of the MSM's result, so the card's events and the spans share
+    ``time.time_ns()``'s clock."""
+    import re
+
+    from rofl_tpu_torch.crypto.fp_codec import FpConfig
+    from rofl_tpu_torch.utils import profiling
+
+    d, fp = 4096, FpConfig(16, 7)
+    cfg = P.CryptoConfig(value_range=8, n_partition=16, l2_value_range=16, fp=fp,
+                         enc_type=P.ENC_L2_TYPE)
+    rng = np.random.default_rng(18)
+    vals = rng.uniform(-0.01, 0.01, d).astype(np.float32)
+    enc = P.EncParamsL2.encrypt(vals, pedersen.rnd_scalar_tensor(d, rng, card), cfg, rng, card)
+    dec = P.deserialize(P.ENC_L2_TYPE, enc.serialize(), fp, card)
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        assert P.verify(dec, rng)
+    spans = [s for s in profiling.spans() if s.name in ("range_verify.msm", "sigma_verify")]
+    assert sorted(s.name for s in spans) == ["range_verify.msm"] * 2 + ["sigma_verify"]
+    msm = [(e.start_ns(), e.start_ns() + e.duration_ns())
+           for e in prof.profiler.kineto_results.events()
+           if e.device_type() == torch.autograd.DeviceType.CUDA
+           and re.search(r"\bmsm_\w+_kernel\b", e.name())]
+    assert msm
+    slack = 500_000
+    for start, end in msm:
+        assert any(s.start_ns - slack <= start and end <= s.end_ns + slack for s in spans)

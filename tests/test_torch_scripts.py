@@ -217,8 +217,9 @@ def test_device_trace_writes_a_trace_with_the_annotation(tmp_path, monkeypatch, 
     if from_env:
         monkeypatch.setenv("ROFL_TRACE_DIR", str(logdir))
     with profiling.device_trace(None if from_env else str(logdir)):
-        with profiling.annotate("rofl-prove-phase"):
+        with profiling.span("rofl-prove-phase"):
             torch.ones(64).cumsum(0)
     (trace,) = logdir.iterdir()
     assert trace.name == f"trace_{os.getpid()}.json"
     assert "rofl-prove-phase" in trace.read_text()
+    assert profiling.spans()[-1].name == "rofl-prove-phase"
