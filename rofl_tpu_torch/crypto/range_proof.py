@@ -26,6 +26,10 @@ Spans (``utils/profiling.py``): the provers' phases ``range_prove.commit``
 polynomials, T, x, w) and ``range_prove.ipp``; the batched verifier's
 ``range_verify.transcript`` (pass 1, on the host) and ``range_verify.msm``
 (pass 2, to the identity check); ``setup.bp_gens`` on the generators' fill.
+Pass 1 costs the Merlin transcripts and O(lg nm) big-int operations a
+chunk, never a host loop over the nm terms: δ(y, z)'s power sums come by
+doubling (the verifier takes only powers of two) and the chunks' challenges
+are inverted in one batch.
 
 Every function works on the device of its tensors, or on `device` where it
 makes them. With ``device="cpu"`` the provers consume the rng exactly as the
@@ -684,36 +688,6 @@ def _ipp_create(
 # -- verifier ----------------------------------------------------------------
 
 
-def _ipp_verification_scalars(ipp: InnerProductProof, n: int, transcript: Transcript,
-                              device="cuda"):
-    """inner_product_proof.rs verification_scalars → (u_sq, u_inv_sq, s) with
-    the challenge lists as ints and the length-n s vector built on `device`
-    by doubling (s_(i|2^j) = s_i · u_sq[lg-1-j]); None where the proof is
-    malformed."""
-    lg_n = len(ipp.L)
-    if lg_n >= 32 or n != (1 << lg_n):
-        return None
-    transcript.append_message(b"dom-sep", b"ipp v1")
-    transcript.append_u64(b"n", n)
-    challenges = []
-    for Lb, Rb in zip(ipp.L, ipp.R):
-        if not _validate_and_append(transcript, b"L", Lb):
-            return None
-        if not _validate_and_append(transcript, b"R", Rb):
-            return None
-        challenges.append(transcript.challenge_scalar(b"u"))
-    u_sq = [(u * u) % SS.L for u in challenges]
-    u_inv = [_inv(u) for u in challenges]
-    u_inv_sq = [(v * v) % SS.L for v in u_inv]
-    all_inv = 1
-    for v in u_inv:
-        all_inv = (all_inv * v) % SS.L
-    s_vec = _consts([all_inv], device)
-    for j in range(lg_n):
-        s_vec = torch.cat([s_vec, sc.mul(s_vec, _consts([u_sq[(lg_n - 1) - j]], device))], dim=1)
-    return u_sq, u_inv_sq, s_vec
-
-
 def _zz2_vec(n: int, m: int, z: int, zz: int, device="cuda") -> torch.Tensor:
     """(16, n·m) vector of z²·z^j·2^i at index k = j·n + i, on `device`."""
     two_pows = sc.powers(_consts([2], device), n)
@@ -722,20 +696,50 @@ def _zz2_vec(n: int, m: int, z: int, zz: int, device="cuda") -> torch.Tensor:
 
 
 def _sum_of_powers(x: int, n: int) -> int:
-    acc, cur = 0, 1
-    for _ in range(n):
-        acc = (acc + cur) % SS.L
-        cur = (cur * x) % SS.L
-    return acc
+    """Σ_{k<n} x^k mod ℓ for n = 0 or a power of two, by doubling as dalek's
+    util::sum_of_powers: Σ_{k<2N} x^k = (1 + x^N)·Σ_{k<N} x^k, 2·log₂n
+    multiplications and no division, so x = 1 needs no case of its own. The
+    verifier takes no other n; any other n raises ValueError."""
+    if n < 2:
+        return n
+    if n & (n - 1):
+        raise ValueError(f"power sum over {n} terms: not a power of two")
+    result, factor = (1 + x) % SS.L, x % SS.L
+    while n > 2:
+        factor = (factor * factor) % SS.L
+        result = (result + factor * result) % SS.L
+        n //= 2
+    return result
 
 
 def _delta(n: int, m: int, y: int, z: int) -> int:
-    """(z−z²)·Σ_{k<nm} y^k − z³·Σ_{i<n} 2^i·Σ_{j<m} z^j."""
+    """(z−z²)·Σ_{k<nm} y^k − z³·Σ_{i<n} 2^i·Σ_{j<m} z^j; Σ_{i<n} 2^i is
+    2^n − 1."""
     zz = (z * z) % SS.L
     return (
         (z - zz) * _sum_of_powers(y, n * m)
-        - (zz * z % SS.L) * _sum_of_powers(2, n) * _sum_of_powers(z, m)
+        - (zz * z % SS.L) * ((1 << n) - 1) * _sum_of_powers(z, m)
     ) % SS.L
+
+
+def _batch_inv(values: list[int]) -> list[int]:
+    """[_inv(v) for v in values] with one ``pow`` (Montgomery's trick): the
+    running product of the nonzero values is inverted once and unwound; a
+    value ≡ 0 is left out of the product and maps to 0, as ``_inv`` maps it."""
+    vs = [v % SS.L for v in values]
+    prefix = []
+    acc = 1
+    for v in vs:
+        prefix.append(acc)
+        if v:
+            acc = (acc * v) % SS.L
+    inv = _inv(acc)
+    out = [0] * len(vs)
+    for i in range(len(vs) - 1, -1, -1):
+        if vs[i]:
+            out[i] = (inv * prefix[i]) % SS.L
+            inv = (inv * vs[i]) % SS.L
+    return out
 
 
 def _pow_rows(base: torch.Tensor, count: int) -> torch.Tensor:
@@ -767,6 +771,10 @@ def verify_multiple_batch(
     verify_multiple per chunk (range_proof_vec/mod.rs:149-216); dalek batches
     this way inside one proof. The rng draws ρ then c per chunk, 64 bytes
     each, as the JAX package does.
+
+    Pass 1 is the chunks' transcripts with O(lg nm) host scalar work each:
+    δ's sums by doubling, and one inversion for every chunk's y and u
+    (Montgomery's trick), so no host loop runs over the nm terms.
     """
     if not items:
         return True
@@ -826,12 +834,6 @@ def verify_multiple_batch(
                 if not _validate_and_append(transcript, b"R", Rb):
                     return False
                 challenges.append(transcript.challenge_scalar(b"u"))
-            u_sq = [(u * u) % SS.L for u in challenges]
-            u_inv = [_inv(u) for u in challenges]
-            u_inv_sq = [(v * v) % SS.L for v in u_inv]
-            all_inv = 1
-            for v in u_inv:
-                all_inv = (all_inv * v) % SS.L
 
             a, b = proof.ipp.a, proof.ipp.b
             basepoint_scalar = (w * (proof.t_x - a * b)
@@ -841,10 +843,21 @@ def verify_multiple_batch(
 
             decode_list += ([proof.A, proof.S, proof.T_1, proof.T_2] + proof.ipp.L + proof.ipp.R
                             + V_bytes)
+            metas.append(dict(rho=rho, z=z, zz=zz, c=c, a=a, b=b, x=x, y=y, u=challenges))
+
+        # every chunk's y and u inverted at once
+        invs = _batch_inv([v for mt in metas for v in [mt["y"]] + mt["u"]])
+        for g, mt in enumerate(metas):
+            mt["y_inv"], *u_inv = invs[g * (1 + lg):(g + 1) * (1 + lg)]
+            u_sq = [(u * u) % SS.L for u in mt["u"]]
+            u_inv_sq = [(v * v) % SS.L for v in u_inv]
+            all_inv = 1
+            for v in u_inv:
+                all_inv = (all_inv * v) % SS.L
+            mt.update(u_sq=u_sq, all_inv=all_inv)
+            rho, x, c = mt["rho"], mt["x"], mt["c"]
             host_scalars += [(k * rho) % SS.L for k in
                              [1, x, (c * x) % SS.L, (c * x * x) % SS.L] + u_sq + u_inv_sq]
-            metas.append(dict(rho=rho, z=z, zz=zz, c=c, a=a, b=b, y_inv=_inv(y), u_sq=u_sq,
-                              all_inv=all_inv))
 
     with span("range_verify.msm"):
         # pass 2: every chunk's scalar vectors at once, on the device
